@@ -1,17 +1,14 @@
 """Classical (Ruge–Stüben) AMG vs smoothed aggregation: iteration-count
 comparison across matrix classes (VERDICT r3 #9).
 
-The TPU routing rule (pc/amg.py: setup_amg) sends ``pc="amg"`` to the
-gather-free structured-SA cycle because the classical cycle's P/R ELL
-gathers are TPU's weakest operation (~1 s vs 1.4 ms per V-cycle at 1M
-rows, docs/performance.md).  That trade is only sound when saamg's
-CONVERGENCE is in the same class; this harness measures exactly that —
-preconditioned Krylov iteration counts with each hierarchy on the matrix
-classes the library ships, on CPU where both cycles are exact.
+Three AMG realizations ship: classical ELL (``pc="amg"``), gather-free
+classical (``rsamg``) and structured smoothed aggregation (``saamg``).
+Choosing among them per matrix class needs their CONVERGENCE side by side;
+this harness measures exactly that — preconditioned Krylov iteration
+counts with each hierarchy on the matrix classes the library ships, on CPU
+where every cycle is exact.
 
-Iteration counts are timing-free (contention-safe) and deterministic;
-the resulting table lives in docs/performance.md ("Classical AMG vs
-smoothed aggregation").  Reference capability anchor: FASP/SXAMG/MI20
+Iteration counts are timing-free (contention-safe) and deterministic.  Reference capability anchor: FASP/SXAMG/MI20
 AMG PC wrappers, /root/reference/src/pc-amg.cxx:21-134.
 """
 import json
@@ -31,7 +28,7 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from lssp_tpu import solve, SolverOptions, PCOptions
+    from lssp_tpu import solve, SolverOptions
     from lssp_tpu.sparse import (laplacian_2d, laplacian_3d,
                                  anisotropic_poisson_2d,
                                  convection_diffusion_2d)
@@ -60,9 +57,7 @@ def main():
         A = gen()
         b = jnp.ones(A.shape[0], dtype=jnp.float64)
         rec = {"case": name, "n": A.shape[0], "method": method}
-        for pc, po in (("amg", PCOptions(amg_force_classical=True)),
-                       ("rsamg", None),
-                       ("saamg", None)):
+        for pc, po in (("amg", None), ("rsamg", None), ("saamg", None)):
             try:
                 x, info = solve(A, b, method=method, pc=pc, options=opts,
                                 pc_options=po)

@@ -1,32 +1,33 @@
 """Distributed solve example: the same Krylov code over a device mesh.
 
-Run on any machine — with no TPU slice it simulates 8 devices on CPU:
+Runs over every device JAX sees (e.g. the GPUs of one host):
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        JAX_PLATFORMS=cpu python examples/distributed.py
+    python examples/distributed.py
 
-On a real multi-chip slice, drop the env vars (and on multi-host, call
-lssp_tpu.parallel.multihost.initialize() first on every host).
+With ``--cpu`` it simulates 8 devices on the CPU instead:
+
+    python examples/distributed.py --cpu
+
+On multi-host, call lssp_tpu.parallel.multihost.initialize() first on
+every host.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + " --xla_force_host_platform_device_count=8")
-
 # the platform must be chosen before the backend initializes — a
 # config.update after first backend use is a no-op
-if "JAX_PLATFORMS" not in os.environ and "TPU_WORKER_ID" not in os.environ:
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "--cpu" in sys.argv[1:]:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8")
 
 import jax
 import lssp_tpu as lt   # before any backend init: injects the XLA:CPU
                         # scheduler guard flag (see lssp_tpu/__init__.py)
 
-jax.config.update("jax_enable_x64", jax.default_backend() != "tpu")
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +41,7 @@ def main():
 
     A = lt.sparse.laplacian_2d(64)
     n = A.shape[0]
-    dtype = jnp.float64 if jax.default_backend() != "tpu" else jnp.float32
-    b = jnp.ones(n, dtype=dtype)
+    b = jnp.ones(n, dtype=jnp.float64)
 
     for method, pc in [("cg", "bjilu"), ("cg", "saamg"),
                        ("bicgstab", "bjilu")]:

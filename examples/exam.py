@@ -20,13 +20,12 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from lssp_tpu import Solver, SolverOptions, solve_ir
+from lssp_tpu import Solver
 from lssp_tpu.sparse import laplacian_2d
 
 
 def main():
     N = int(sys.argv[1]) if len(sys.argv) > 1 else 100
-    on_tpu = jax.default_backend() == "tpu"
 
     A = laplacian_2d(N)
     n = A.shape[0]
@@ -36,29 +35,18 @@ def main():
 
     b = jnp.ones(n, dtype=jnp.float64)
 
-    if on_tpu:
-        # TPU has no native fp64: mixed-precision iterative refinement runs
-        # the Krylov iterations in fp32 at hardware speed and recovers the
-        # reference's fp64 tolerance in the fp64 outer loop
-        t0 = time.perf_counter()
-        x, info = solve_ir(A, b, method="gmres", pc="iluk",
-                           options=SolverOptions(restart=60, maxit=3000))
-        print(f"gmres-ir: total inner iterations: {int(info.nits)}")
-        print(f"total solver time: {time.perf_counter() - t0:.6g}")
-        residual = float(info.residual)
-    else:
-        s = Solver(method="gmres", pc="iluk")
-        s.set_restart(60).set_maxit(3000)
+    s = Solver(method="gmres", pc="iluk")
+    s.set_restart(60).set_maxit(3000)
 
-        t0 = time.perf_counter()
-        s.assemble(A, b)
-        print(f"solver: assemble time: {time.perf_counter() - t0:.6g}")
+    t0 = time.perf_counter()
+    s.assemble(A, b)
+    print(f"solver: assemble time: {time.perf_counter() - t0:.6g}")
 
-        t0 = time.perf_counter()
-        x = s.solve()
-        print(f"gmres: total iteration: {s.nits}")
-        print(f"total solver time: {time.perf_counter() - t0:.6g}")
-        residual = s.residual
+    t0 = time.perf_counter()
+    x = s.solve()
+    print(f"gmres: total iteration: {s.nits}")
+    print(f"total solver time: {time.perf_counter() - t0:.6g}")
+    residual = s.residual
 
     print(f"solution L2 norm: {float(jnp.linalg.norm(x)):.8e} "
           f"residual: {residual:.8e}")

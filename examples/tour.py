@@ -2,7 +2,7 @@
 direct solve, multilevel preconditioners, transpose-based Krylov methods,
 mixed-precision refinement, and checkpoint/resume.
 
-Run: python examples/tour.py  (CPU or TPU)
+Run: python examples/tour.py  (CPU or GPU)
 """
 import os
 import sys

@@ -1,10 +1,10 @@
-"""lssp_tpu — a TPU-native sparse linear-solver framework.
+"""lssp_tpu — a sparse linear-solver framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the serial C++
+A from-scratch JAX/XLA re-design of the capabilities of the serial C++
 reference library huiscliu/lssp (solving sparse ``Ax = b``): CSR/BSR/ELL/DIA
-sparse matrices resident in TPU HBM, the full Krylov suite, ILU-family and AMG
-preconditioners, and a row-partitioned multi-chip distribution layer built on
-``jax.sharding.Mesh`` + ``shard_map`` with ICI collectives.
+sparse matrices resident in device memory, the full Krylov suite, ILU-family
+and AMG preconditioners, and a row-partitioned multi-device distribution
+layer built on ``jax.sharding.Mesh`` + ``shard_map`` collectives.
 
 Public API (functional):
 
@@ -33,7 +33,7 @@ import os as _os
 # 3.0 on `pc(v) + A@pc(2v)`; jax 0.9.0).  Chained applies, single applies,
 # and fully-unrolled scans are unaffected, which is why only the
 # multi-apply solvers saw it.  Disabling the scheduler restores correct
-# results at a minor CPU-only scheduling cost; the TPU backend ignores the
+# results at a minor CPU-only scheduling cost; the GPU backend ignores the
 # flag.  Regression: tests/test_ops.py::TestTriSweepCarryMiscompile.
 _flag = "--xla_cpu_enable_concurrency_optimized_scheduler=false"
 if _flag not in _os.environ.get("XLA_FLAGS", ""):

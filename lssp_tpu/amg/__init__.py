@@ -1,5 +1,5 @@
 """Native classical AMG (replaces the reference's external FASP/SXAMG/MI20
-AMG wrappers, SURVEY §2.5, with a from-scratch TPU implementation:
+AMG wrappers, SURVEY §2.5, with a from-scratch device implementation:
 strength-of-connection -> PMIS coarsening -> direct interpolation -> Galerkin
 RAP via SpGEMM -> Jacobi/Chebyshev smoothers -> device V-cycle)."""
 

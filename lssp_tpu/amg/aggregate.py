@@ -1,9 +1,8 @@
-"""Hierarchical strength aggregation ordering — TPU-fast AMG for matrices
-the grid detector cannot handle.
+"""Hierarchical strength aggregation ordering — gather-free AMG for
+matrices the grid detector cannot handle.
 
 The structured-SA machinery (amg/sa.py) needs aggregates that are
-CONTIGUOUS index ranges so prolongation is a reshape (TPU has no hardware
-gather).  For grid operators the facade's ordering already delivers that;
+CONTIGUOUS index ranges so prolongation is a reshape (no gather).  For grid operators the facade's ordering already delivers that;
 for genuinely unstructured sparsity the flat path falls back to *blind*
 ranges, which may group weakly-coupled rows.
 
@@ -19,7 +18,7 @@ RCM.
 
 Capability match: AMG on any CSR (/root/reference/src/pc-amg.cxx:21-134,
 /root/reference/src/solver-amg.cxx:64-130 — the reference gets this from
-FASP); the realization is TPU-first, no structural analog in the reference.
+FASP); the realization has no structural analog in the reference.
 """
 from __future__ import annotations
 

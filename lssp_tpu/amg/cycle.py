@@ -5,7 +5,7 @@ stencil-structured fine grid, ELL for coarse/interpolation operators); the
 V-cycle itself is a pure jittable function unrolled over the (static) level
 count, with pointwise smoothers only — weighted Jacobi or Chebyshev
 (preconditioned by D⁻¹) — so every device op is a bandwidth-bound SpMV or
-VPU elementwise work, never a sequential sweep.
+elementwise work, never a sequential sweep.
 """
 from __future__ import annotations
 
@@ -114,7 +114,8 @@ def _cycle_at(h: DeviceAMG, l: int, b_l, x_l):
     """One V-cycle starting at level ``l`` (0 = finest)."""
     lev = h.levels[l]
     if l == len(h.levels) - 1:
-        return h.coarse_inv @ b_l
+        return jnp.matmul(h.coarse_inv, b_l,
+                          precision=jax.lax.Precision.HIGHEST)
     x_l = _smooth(lev, x_l, b_l)
     r = b_l - spmv(lev.A, x_l)
     rc = spmv(lev.R, r)
@@ -143,7 +144,8 @@ def fmg_initial(h: DeviceAMG, b):
     bs = [b]
     for l in range(len(h.levels) - 1):
         bs.append(spmv(h.levels[l].R, bs[-1]))
-    x = h.coarse_inv @ bs[-1]
+    x = jnp.matmul(h.coarse_inv, bs[-1],
+                   precision=jax.lax.Precision.HIGHEST)
     for l in range(len(h.levels) - 2, -1, -1):
         x = spmv(h.levels[l].P, x)
         x = _cycle_at(h, l, bs[l], x)
@@ -158,56 +160,7 @@ def amg_solve(A: CSR, b, x0=None, rtol: float = 1e-7, atol: float = 1e-7,
     the reference's lssp_solver_amg wrapper around FASP
     (/root/reference/src/solver-amg.cxx:64-130).  ``fmg=True`` starts
     from the full-multigrid (nested-iteration) guess — the reference's
-    FMG solver type (fasp_solver_famg, solver-amg.cxx:99).  On the TPU
-    backend a lattice matrix runs the gather-free classical cycle
-    (amg/rs.py) instead of the ELL realization — same stationary
-    iteration, TPU-fast transfers."""
-    import jax as _jax
-    if _jax.default_backend() == "tpu":
-        from lssp_tpu.amg import rs as _rs
-        if _rs.detect_grid3(A) is not None:
-            hier_rs = _rs.rs_host_setup(A, theta=theta)
-            h_rs = _rs.build_device_rs(hier_rs, dtype=dtype,
-                                       smoother=smoother, degree=degree)
-            b_ = jnp.asarray(b, dtype=dtype)
-            x = (jnp.zeros_like(b_) if x0 is None
-                 else jnp.asarray(x0, dtype=dtype))
-            if fmg and x0 is None and h_rs.levels:
-                x = jnp.asarray(_rs.rs_fmg_initial(h_rs, b_),
-                                dtype=dtype)[:b_.shape[0]]
-            A_top = h_rs.levels[0].A if h_rs.levels else None
-
-            def _mv(v):
-                if A_top is None:
-                    return v
-                vp = jnp.pad(v, (0, A_top.shape[0] - v.shape[0])) \
-                    if A_top.shape[0] != v.shape[0] else v
-                return spmv(A_top, vp)[:v.shape[0]]
-
-            @jax.jit
-            def run(x, b):
-                r0 = jnp.linalg.norm(b - _mv(x))
-                tol = jnp.maximum(rtol * r0, atol)
-
-                def cond(c):
-                    it, x, res = c
-                    return (it < maxit) & (res > tol)
-
-                def body(c):
-                    it, x, res = c
-                    r = b - _mv(x)
-                    x = x + _rs.rs_vcycle(h_rs, r)
-                    res = jnp.linalg.norm(b - _mv(x))
-                    return (it + 1, x, res)
-
-                return jax.lax.while_loop(cond, body, (jnp.int32(0), x, r0))
-
-            it, x, res = run(x, b_)
-            nnz0 = hier_rs.levels[0].A.nnz if hier_rs.levels else 1
-            cx = (sum(l.A.nnz for l in hier_rs.levels)
-                  + hier_rs.A_coarse.nnz) / nnz0
-            return x, {"nits": int(it), "residual": float(res),
-                       "complexity": float(cx)}
+    FMG solver type (fasp_solver_famg, solver-amg.cxx:99)."""
     hier = amg_setup(A, theta=theta)
     h = build_device_amg(hier, dtype=dtype, smoother=smoother, degree=degree)
     b = jnp.asarray(b, dtype=dtype)

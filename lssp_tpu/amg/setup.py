@@ -2,7 +2,7 @@
 PMIS coarsening → direct interpolation → Galerkin RAP.
 
 This replaces the reference's *external* AMG capability (FASP/SXAMG/HSL-MI20
-wrappers, SURVEY §2.5) with a native construction chosen for TPU execution:
+wrappers, SURVEY §2.5) with a native construction chosen for device execution:
 PMIS coarsening (parallel-friendly, deterministic) and Jacobi/Chebyshev
 smoothers (pointwise — no sequential Gauss–Seidel sweeps on device).
 

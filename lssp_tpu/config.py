@@ -93,12 +93,11 @@ class PCOptions:
     block_sizes: Any = None               # variable block sizes (vbiluk /
                                           # vbilut; reference s.blk_size[])
     ilu_sweeps: Optional[int] = None      # triangular-solve strategy:
-                                          # None = auto (6 Neumann sweeps on
-                                          # TPU, exact level scheduling on
-                                          # CPU); 0 = force exact (level
+                                          # None = auto (exact level
+                                          # scheduling); 0 = force exact (level
                                           # scan); -1 = exact via COMPLETE
                                           # Neumann series (nilpotent strict
-                                          # factors — TPU-fast exact path);
+                                          # factors, one SpMV per sweep);
                                           # k>0 = k iterative SpMV sweeps
     omega: float = 1.0                    # damping (Jacobi/smoothers)
     poly_degree: int = 8                  # polynomial-PC Chebyshev degree
@@ -146,16 +145,7 @@ class PCOptions:
                                           # the FASP AMG_param cycle_type
                                           # capability; W visits coarse
                                           # levels twice per descent)
-    amg_force_classical: bool = False     # force the classical hierarchy on
-                                          # TPU even when its slotted-P
-                                          # conversion reports poor locality
-                                          # (kept-mass below the routing
-                                          # threshold) — by default such
-                                          # matrices route to the gather-free
-                                          # saamg instead (amg/rs.py keeps
-                                          # classical gather-free only while
-                                          # interpolation offsets stay local)
-    amg_max_pdiags: int = 40              # offset cap for the TPU-resident
+    amg_max_pdiags: int = 40              # offset cap for the gather-free
                                           # classical cycle's aggregated-
                                           # diagonal interpolation (amg/rs.py:
                                           # cap_offsets; entries at rarer

@@ -1,7 +1,10 @@
 """Native C++ host kernels (setup-phase hot loops), loaded via ctypes.
 
-The shared library is built on demand with g++ (-O3) into
-``lssp_tpu/native/_build/`` and cached; if no compiler is available the
+The shared library is built on demand with g++ (-O3, no host-specific
+``-march``) into ``lssp_tpu/native/_build/``, under a file name keyed on a
+hash of the sources, the compiler flags and the host architecture — a
+library built from other sources or with other flags is never loaded.  If no
+compiler is available the
 Python implementations in lssp_tpu/pc/ilu_host.py and ops/trisolve.py are
 used instead (identical outputs, slower).  Set ``LSSP_TPU_NO_NATIVE=1`` to
 force the Python path.
@@ -9,8 +12,11 @@ force the Python path.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -25,7 +31,10 @@ _SRCS = [os.path.join(_HERE, "src", "ilu.cpp"),
          os.path.join(_HERE, "src", "rap.cpp"),
          os.path.join(_HERE, "src", "mf.cpp")]
 _BUILD_DIR = os.path.join(_HERE, "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "liblssp_native.so")
+# -ffp-contract=off: no FMA contraction, so outputs are bit-identical to
+# the pure-Python oracle implementations (these kernels are gather-bound;
+# the cost is negligible)
+_FLAGS = ("-O3", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -35,17 +44,36 @@ _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
-def _build() -> bool:
+def build_key(srcs=_SRCS, flags=_FLAGS) -> str:
+    """Hash of the host architecture, the compiler flags and the source
+    bytes — the identity of one built library."""
+    h = hashlib.sha256(platform.machine().encode())
+    for f in flags:
+        h.update(f.encode() + b"\0")
+    for path in srcs:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> str:
+    return os.path.join(_BUILD_DIR, f"liblssp_native-{build_key()}.so")
+
+
+def _build(out: str) -> bool:
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    # -ffp-contract=off: no FMA contraction, so outputs are bit-identical to
-    # the pure-Python oracle implementations (these kernels are gather-bound;
-    # the cost is negligible)
-    cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
-           "-shared", "-fPIC", *_SRCS, "-o", _LIB_PATH]
+    # compile to a private name and rename: concurrent test workers may
+    # build the same key at once, and a reader must never see half a file
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = ["g++", *_FLAGS, *_SRCS, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         return False
 
 
@@ -60,15 +88,19 @@ def load():
         _tried = True
         if os.environ.get("LSSP_TPU_NO_NATIVE"):
             return None
-        if not os.path.exists(_LIB_PATH) or any(
-                os.path.getmtime(_LIB_PATH) < os.path.getmtime(s)
-                for s in _SRCS):
-            if not _build():
-                return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
             return None
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            # built against another C++ runtime: rebuild here, once
+            if not _build(path):
+                return None
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError:
+                return None
         lib.lssp_levels.argtypes = [_i64p, _i64p, ctypes.c_int64,
                                     ctypes.c_int, _i64p]
         lib.lssp_ilu0.argtypes = [_i64p, _i64p, _f64p, ctypes.c_int64,

@@ -1,6 +1,6 @@
 // Native host-side factorization kernels (C++17, C ABI via ctypes).
 //
-// These are the setup-phase hot loops that stay on the host in the TPU
+// These are the setup-phase hot loops that stay on the host in this
 // design (SURVEY §7: "factorization on host, iteration on device"):
 //   * level-set computation for the level-scheduled triangular solve
 //   * ILU(0) numeric IKJ elimination on a fixed sorted pattern

@@ -8,7 +8,7 @@
 // Replaces the scipy chain  (B @ P0) -> tocsc -> csr_matmat x2  that
 // dominated the 16.8M saamg host hierarchy build (oracle: the scipy
 // expressions in lssp_tpu/amg/sa.py sa_host_levels; capability anchor:
-// AMG setup /root/reference/src/pc-amg.cxx:120, realized TPU-first).
+// AMG setup /root/reference/src/pc-amg.cxx:120).
 //
 // Output rows are sorted and duplicate-free (canonical CSR).  Returns the
 // output nnz, or -(needed_estimate) when `cap` is too small (caller

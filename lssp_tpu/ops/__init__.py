@@ -1,7 +1,7 @@
 """Device math kernels: SpMV, fused BLAS-1, level-scheduled triangular solve.
 
 These replace the reference's L2 layer (/root/reference/src/mvops.cxx,
-src/vector.cxx, src/solver-tri.cxx) with TPU-native designs: SpMV dispatches
+src/vector.cxx, src/solver-tri.cxx) with data-parallel designs: SpMV dispatches
 on execution format (DIA streaming / ELL gather / BSR batched-GEMM / CSR
 segment-sum), BLAS-1 is plain jnp (XLA fuses it into the solver step), and
 the inherently sequential triangular recurrence becomes a host-computed level

@@ -2,10 +2,10 @@
 
 Same design as ops/trisolve.py but at block granularity: rows are bs-sized
 block rows, off-diagonal entries are dense bs×bs blocks, and each level step
-is a batched (w, k, bs, bs) × (w, k, bs) block GEMV — einsum → MXU.  This
+is a batched (w, k, bs, bs) × (w, k, bs) block GEMV — one einsum.  This
 replaces the reference's scalar expansion of the block factors
 (/root/reference/src/pc-biluk.cxx:104-196 flattens blocks into scalar CSR
-and runs the scalar sweep; we keep blocks intact for the MXU).
+and runs the scalar sweep; we keep blocks intact for batched products).
 """
 from __future__ import annotations
 
@@ -81,7 +81,8 @@ def block_trisweep(sched: BlockTriSchedule, b):
     def step(ye, level):
         rows, cols, vals = level
         yv = ye[cols]                                    # (w, k, bs)
-        s = be[rows] - jnp.einsum("wkij,wkj->wi", vals, yv)
+        s = be[rows] - jnp.einsum("wkij,wkj->wi", vals, yv,
+                                   precision=jax.lax.Precision.HIGHEST)
         return ye.at[rows].set(s), None
 
     # NB: two independent copies of this scan in one jit program were
@@ -95,7 +96,8 @@ def block_trisweep(sched: BlockTriSchedule, b):
 
 
 def block_diag_apply(dinv, y):
-    """z_i = Dinv_i · y_i — batched bs×bs GEMV (MXU)."""
+    """z_i = Dinv_i · y_i — batched bs×bs GEMV."""
     nrowb, bs = dinv.shape[0], dinv.shape[1]
     yb = y.reshape(nrowb, bs)
-    return jnp.einsum("nij,nj->ni", dinv, yb).reshape(nrowb * bs)
+    return jnp.einsum("nij,nj->ni", dinv, yb,
+                      precision=jax.lax.Precision.HIGHEST).reshape(nrowb * bs)

@@ -6,15 +6,21 @@ Replaces the reference's scalar row-loop SpMV family
 compositions — under jit XLA fuses the scale/add into the SpMV epilogue, so
 there is no performance reason to hand-write each variant.
 
-Format strategy (TPU-first):
-- ``DIA``: each diagonal is a shifted elementwise multiply-add — pure VPU +
-  sequential HBM streaming, the speed-of-light choice for stencil matrices.
-- ``ELL``: one gather of x at (n, k) indices + row-sum.  XLA lowers the
-  gather to dynamic-slice loads; with k small this is bandwidth-bound on the
-  data/cols arrays, which is optimal for unstructured matrices.
-- ``BSR``: batched (bs×bs)@(bs,) block products via einsum → MXU, plus a
-  segment-sum over block rows.
+Format strategy:
+- ``DIA``: each diagonal is a shifted elementwise multiply-add on static
+  slices of one padded x — XLA fuses the whole sum into one streaming loop
+  fusion, the bandwidth-bound choice for stencil matrices.
+- ``HYB``: the DIA band plus a COO remainder applied as a plain gather of
+  x and a sorted scatter-add.
+- ``ELL``: one gather of x at (n, k) indices + row-sum; with k small this is
+  bandwidth-bound on the data/cols arrays.
+- ``BSR``/``BDIA``: batched (bs×bs)@(bs,) block products via einsum, plus a
+  segment-sum over block rows (BSR) or shifted block columns (BDIA).
 - ``CSR``: segment-sum reference path (correctness oracle / fallback).
+
+Every fp32 einsum pins ``precision=HIGHEST``: the GPU may otherwise run an
+fp32 contraction in TF32 (~3 decimal digits), which breaks solves held to a
+1e-8 residual.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from lssp_tpu.sparse.types import CSR, BSR, ELL, DIA, BDIA, HYB
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def csr_row_ids(A: CSR) -> np.ndarray:
@@ -42,30 +50,33 @@ def _spmv_ell(A: ELL, x):
     return jnp.sum(A.data * x[A.cols], axis=1)
 
 
-def dia_pallas_ok(dtype, n: int) -> bool:
-    """THE gate for the Pallas DIA fast path — one definition so every
-    dispatch site (spmv, mv_amxy, the distributed per-shard op) stays in
-    sync when kernel constraints change."""
-    return (jax.default_backend() == "tpu"
-            and dtype in (jnp.float32, jnp.bfloat16) and n >= 4096)
+def _band_pad(offs):
+    """(lo, hi) zero padding that keeps every shifted window in range."""
+    lo = max(0, -min(offs)) if offs else 0
+    hi = max(0, max(offs)) if offs else 0
+    return lo, hi
+
+
+def dia_spmv_padded(data, offs, xp, lo):
+    """y[i] = Σ_d data[d, i] · xp[lo + i + offs[d]] for a pre-padded x.
+
+    Shared by the single-device DIA product (``xp`` = zero-padded x) and
+    the distributed per-shard op (``xp`` = [halo_lo ‖ x_local ‖ halo_hi]).
+    Every window is a static ``lax.slice``, so XLA fuses the whole sum into
+    one elementwise loop fusion that streams the diagonals once."""
+    n = data.shape[1]
+    y = None
+    for d, off in enumerate(offs):
+        term = data[d] * jax.lax.slice(xp, (lo + off,), (lo + off + n,))
+        y = term if y is None else y + term
+    if y is None:
+        return jnp.zeros(n, jnp.result_type(data.dtype, xp.dtype))
+    return y
 
 
 def _spmv_dia(A: DIA, x):
-    n = A.shape[0]
-    dtype = jnp.result_type(A.data.dtype, x.dtype)
-    # TPU fast path: Pallas stencil kernel (~75% of HBM roofline on v5e vs
-    # ~30% for the XLA-composed loop below)
-    if dia_pallas_ok(dtype, n):
-        from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas
-        return dia_spmv_pallas(A, x)
-    offs = A.offsets
-    lo = max(0, -min(offs)) if offs else 0
-    hi = max(0, max(offs)) if offs else 0
-    xp = jnp.pad(x, (lo, hi))
-    y = jnp.zeros(n, dtype=dtype)
-    for d, off in enumerate(offs):
-        y = y + A.data[d] * jax.lax.dynamic_slice(xp, (lo + off,), (n,))
-    return y
+    lo, hi = _band_pad(A.offsets)
+    return dia_spmv_padded(A.data, A.offsets, jnp.pad(x, (lo, hi)), lo)
 
 
 def _spmv_bsr(A: BSR, x, block_rows=None):
@@ -75,26 +86,25 @@ def _spmv_bsr(A: BSR, x, block_rows=None):
         block_rows = np.repeat(np.arange(A.nrowb, dtype=np.int32), ip[1:] - ip[:-1])
     xb = x.reshape(A.shape[1] // bs, bs)
     gathered = xb[A.indices]                                   # (nnzb, bs)
-    prod = jnp.einsum("nij,nj->ni", A.blocks, gathered)        # MXU batched
+    prod = jnp.einsum("nij,nj->ni", A.blocks, gathered, precision=HIGHEST)
     yb = jax.ops.segment_sum(prod, block_rows, num_segments=A.nrowb)
     return yb.reshape(A.shape[0])
 
 
 def _spmv_bdia(A: BDIA, x):
     """Block-diagonal SpMV: per block diagonal, one batched (bs×bs)@(bs,)
-    einsum on shifted block columns — MXU, no gathers."""
+    einsum on shifted block columns — no gathers."""
     nb = A.nrowb
     bs = A.blocksize
     offs = A.offsets
-    lo = max(0, -min(offs)) if offs else 0
-    hi = max(0, max(offs)) if offs else 0
+    lo, hi = _band_pad(offs)
     xb = x.reshape(nb, bs)
     xp = jnp.pad(xb, ((lo, hi), (0, 0)))
     dtype = jnp.result_type(A.blocks.dtype, x.dtype)
     y = jnp.zeros((nb, bs), dtype=dtype)
     for d, off in enumerate(offs):
-        xs = jax.lax.dynamic_slice(xp, (lo + off, 0), (nb, bs))
-        y = y + jnp.einsum("nij,nj->ni", A.blocks[d], xs)
+        xs = jax.lax.slice(xp, (lo + off, 0), (lo + off + nb, bs))
+        y = y + jnp.einsum("nij,nj->ni", A.blocks[d], xs, precision=HIGHEST)
     return y.reshape(A.shape[0])
 
 
@@ -102,71 +112,26 @@ def _spmv_bdia_t(A: BDIA, x):
     nb = A.nrowb
     bs = A.blocksize
     offs = A.offsets
-    lo = max(0, -min(offs)) if offs else 0
-    hi = max(0, max(offs)) if offs else 0
+    lo, hi = _band_pad(offs)
     xb = x.reshape(nb, bs)
     dtype = jnp.result_type(A.blocks.dtype, x.dtype)
     y = jnp.zeros((nb, bs), dtype=dtype)
     for d, off in enumerate(offs):
-        z = jnp.einsum("nij,ni->nj", A.blocks[d], xb)   # blockᵀ·x per row
+        z = jnp.einsum("nij,ni->nj", A.blocks[d], xb,     # blockᵀ·x per row
+                       precision=HIGHEST)
         zp = jnp.pad(z, ((hi, lo), (0, 0)))
-        y = y + jax.lax.dynamic_slice(zp, (hi - off, 0), (nb, bs))
+        y = y + jax.lax.slice(zp, (hi - off, 0), (hi - off + nb, bs))
     return y.reshape(A.shape[1])
-
-
-def lane_gather(x, cols):
-    """x[cols] rewritten as a LANE-WIDE row gather + fused one-hot select:
-    gather whole 128-lane rows of x.reshape(-1, 128) by cols // 128, then
-    pick the lane with an on-the-fly iota comparison.  TPU-measured at
-    4.2M rows / 21k indices: ~0 µs marginal vs 115 µs for the scalar
-    gather x[cols] — XLA's scalar gather serializes per element, while
-    (1, 128) row slices ride the DMA path at full lane width."""
-    L = 128
-    n = x.shape[0]
-    npad = (-n) % L
-    xp = jnp.pad(x, (0, npad)) if npad else x
-    xr = xp.reshape(-1, L)[cols // L]                       # (k, 128) rows
-    onehot = (cols % L)[:, None] == jnp.arange(L, dtype=cols.dtype)[None, :]
-    return jnp.sum(xr * onehot.astype(x.dtype), axis=1)
 
 
 def _spmv_hyb(A: HYB, x):
     """Band part streams as DIA; the small COO remainder applies as one
-    lane-wide gather + scatter-add whose cost scales with the remainder
-    count, not the matrix (padded slots contribute 0 to row 0).
-
-    TPU fast path: when the converter laid the remainder out in window
-    slots (``win_*``), the scatter happens INSIDE the Pallas DIA kernel as
-    a dense one-hot epilogue while each y tile is still in VMEM — the XLA
-    scatter-add serializes per element and was measured costing more than
-    the whole band product.  Only the few overflow entries (ovr_*) take
-    the scalar scatter."""
-    n = A.shape[0]
-    dtype = jnp.result_type(A.dia.data.dtype, x.dtype)
-    if (A.tc_vals is not None and dtype == jnp.float32
-            and dia_pallas_ok(dtype, n)):
-        # tile-compact remainder: compact gather (~1.5× the entry count
-        # instead of the window layout's S·nwin ≈ 3×) + in-kernel MXU
-        # scatter, no scalar overflow path at all
-        from lssp_tpu.ops.pallas_spmv import (dia_spmv_hyb_tc_pallas,
-                                              hyb_tile_rows)
-        if A.tile_rows == hyb_tile_rows(n, A.dia.offsets, 4):
-            nb, TS = A.tc_vals.shape
-            xg = lane_gather(x, A.tc_cols.reshape(-1)).reshape(nb, TS)
-            return dia_spmv_hyb_tc_pallas(A, x, A.tc_vals * xg)
-    if A.win_vals is not None and dia_pallas_ok(dtype, n):
-        from lssp_tpu.ops.pallas_spmv import dia_spmv_hyb_pallas
-        S, nwin = A.win_vals.shape
-        xg = lane_gather(x, A.win_cols.reshape(-1)).reshape(S, nwin)
-        y = dia_spmv_hyb_pallas(A, x, A.win_vals * xg)
-        # ovr/rem triplets are row-sorted by construction (CSR order is
-        # preserved through the split); the sorted hint vectorizes the
-        # scatter — TPU-measured 72 → 15 µs at 1k entries
-        return y.at[A.ovr_rows].add(
-            A.ovr_vals * lane_gather(x, A.ovr_cols),
-            indices_are_sorted=True)
+    gather of x plus a scatter-add whose cost scales with the remainder
+    count, not the matrix.  ``rem_rows`` is row-sorted by construction
+    (CSR order, padding at row n-1 with value 0), which the sorted hint
+    lets the scatter exploit."""
     y = _spmv_dia(A.dia, x)
-    return y.at[A.rem_rows].add(A.rem_vals * lane_gather(x, A.rem_cols),
+    return y.at[A.rem_rows].add(A.rem_vals * x[A.rem_cols],
                                 indices_are_sorted=True)
 
 
@@ -214,13 +179,11 @@ def _spmv_dia_t(A: DIA, x):
     # stored as 0, so no masking is needed).
     n = A.shape[0]
     dtype = jnp.result_type(A.data.dtype, x.dtype)
-    offs = A.offsets
-    lo = max(0, -min(offs)) if offs else 0
-    hi = max(0, max(offs)) if offs else 0
+    lo, hi = _band_pad(A.offsets)
     y = jnp.zeros(n, dtype=dtype)
-    for d, off in enumerate(offs):
+    for d, off in enumerate(A.offsets):
         zp = jnp.pad(A.data[d] * x, (hi, lo))
-        y = y + jax.lax.dynamic_slice(zp, (hi - off,), (n,))
+        y = y + jax.lax.slice(zp, (hi - off,), (hi - off + n,))
     return y
 
 
@@ -231,7 +194,8 @@ def _spmv_bsr_t(A: BSR, x, block_rows=None):
         block_rows = np.repeat(np.arange(A.nrowb, dtype=np.int32), ip[1:] - ip[:-1])
     xb = x.reshape(A.shape[0] // bs, bs)
     gathered = xb[block_rows]                                   # (nnzb, bs)
-    prod = jnp.einsum("nij,ni->nj", A.blocks, gathered)         # blockᵀ·x
+    prod = jnp.einsum("nij,ni->nj", A.blocks, gathered,         # blockᵀ·x
+                      precision=HIGHEST)
     yb = jax.ops.segment_sum(prod, A.indices,
                              num_segments=A.shape[1] // bs)
     return yb.reshape(A.shape[1])
@@ -243,7 +207,7 @@ def spmv_t(A, x):
         return _spmv_dia_t(A, x)
     if isinstance(A, HYB):
         y = _spmv_dia_t(A.dia, x)
-        return y.at[A.rem_cols].add(A.rem_vals * lane_gather(x, A.rem_rows))
+        return y.at[A.rem_cols].add(A.rem_vals * x[A.rem_rows])
     if isinstance(A, ELL):
         return _spmv_ell_t(A, x)
     if isinstance(A, BDIA):
@@ -270,21 +234,8 @@ def mv_amxpbyz(alpha, A, x, beta, y):
 
 
 def mv_amxy(alpha, A, x):
-    """y = alpha*A@x            (mvops.cxx:81-115).
-
-    On the TPU DIA fast path the scale folds into the Pallas kernel
-    epilogue instead of a separate XLA pass (which would re-read and
-    re-write y — a 22% bandwidth tax on a 5-diagonal stencil).  The fold
-    needs a CONCRETE alpha (it compiles in as a static constant); traced
-    alphas fall back to the generic scale — no crash, no per-value
-    recompiles."""
-    if isinstance(A, DIA) and isinstance(
-            alpha, (int, float, np.floating, np.integer)):
-        n = A.shape[0]
-        dtype = jnp.result_type(A.data.dtype, x.dtype)
-        if dia_pallas_ok(dtype, n):
-            from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas
-            return dia_spmv_pallas(A, x, scale=alpha)
+    """y = alpha*A@x            (mvops.cxx:81-115).  Under jit XLA fuses the
+    scale into the SpMV's loop fusion."""
     return alpha * spmv(A, x)
 
 

@@ -1,10 +1,10 @@
 """Batched tridiagonal solves via parallel cyclic reduction (PCR).
 
-The TPU-native tridiagonal solver: the Thomas algorithm is a sequential
+The data-parallel tridiagonal solver: the Thomas algorithm is a sequential
 recurrence (unrunnable on SIMD hardware, like the triangular solves —
 SURVEY §7 "hard parts"), but PCR eliminates the couplings in log2(n)
-full-width steps, each a handful of shifted elementwise ops — pure VPU +
-HBM streaming, zero gathers (shifts are pads + static slices, the same
+full-width steps, each a handful of shifted elementwise ops — pure
+streaming, zero gathers (shifts are pads + static slices, the same
 trick as the DIA SpMV).
 
 Used by the multigrid LINE smoother (amg/sa.py): for strongly anisotropic
@@ -12,7 +12,7 @@ operators, point smoothers (Jacobi/Chebyshev) cannot damp errors that are
 smooth along the strong direction, which is why iteration counts explode
 with problem size; solving whole strong-direction lines restores
 size-robust convergence (the standard structured-multigrid answer, here
-with the TPU-friendly solver).
+with the data-parallel solver).
 
 Zero off-diagonals decouple the system into independent lines
 automatically, so a (n,) tridiagonal whose couplings vanish at grid-row
@@ -207,8 +207,8 @@ def dist_spike_solve(dl, d, du, vspike, wspike, Minv, b, axis: str,
     y = pcr_solve(dl_l, d, du_l, b)
     allv = jax.lax.all_gather(jnp.stack([y[0], y[-1]]), axis)   # (P, 2)
     rhs = allv.reshape(-1)
-    # mul+sum, not @: the smoother may run in fp64 where TPU dot_general
-    # is lossy (see solvers/base.py: vdot)
+    # mul+sum, not @: no backend may route it through a reduced-precision
+    # matrix unit (see solvers/base.py: vdot)
     u = jnp.sum(Minv * rhs[None, :], axis=1)
     p = jax.lax.axis_index(axis)
     u_prev = jnp.where(p > 0, u[(2 * p - 1) % (2 * P)], 0.0)

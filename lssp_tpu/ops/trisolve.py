@@ -2,7 +2,7 @@
 
 The reference's forward/backward substitution
 (/root/reference/src/solver-tri.cxx:4-60) is a sequential row recurrence —
-unrunnable as-is on a SIMD machine.  TPU-native redesign (SURVEY §7 "hard
+unrunnable as-is on a data-parallel machine.  Redesign (SURVEY §7 "hard
 parts"):
 
 1. **Host (once, at PC assemble):** compute each row's *level* — the longest
@@ -13,7 +13,7 @@ parts"):
    shape), forms ``s = b[rows] − Σ vals·x[cols]`` as a vectorized gather +
    row-sum, scales by 1/diag, and scatters into x.  The only sequential axis
    left is the level count (≈ the dependency-graph depth, e.g. 2N−1 for a
-   2-D N×N 5-point grid), each step being full-width VPU work.
+   2-D N×N 5-point grid), each step being full-width vector work.
 
 Padded slots use row index n / column index n pointing at a dummy slot, so
 the device code needs no masking.
@@ -85,9 +85,8 @@ def _compute_levels(indptr, indices, n, lower: bool) -> np.ndarray:
 
 def default_ilu_sweeps() -> int:
     """The ilu_sweeps=None resolution, shared by every ILU family (scalar,
-    block, distributed): Chow Neumann sweeps on TPU, exact elsewhere."""
-    import jax
-    return 6 if jax.default_backend() == "tpu" else 0
+    block, distributed): exact level-scheduled solves."""
+    return 0
 
 
 def neumann_exact_depth(tris) -> int:
@@ -229,9 +228,9 @@ def make_ilu_apply(L: CSR, U: CSR):
 # (hundreds of tiny device steps).  For unit-lower L = I + Ls the inverse is
 # the finite Neumann series Σ (−Ls)^m, so k sweeps of  y ← b − Ls·y  give a
 # degree-k truncation — every sweep is ONE full-width SpMV with the strict
-# factor in its DIA/ELL execution format, i.e. it runs at SpMV speed on the
-# VPU instead of level-by-level.  Truncation makes the PC approximate
-# (slightly more Krylov iterations), the standard GPU/TPU trade
+# factor in its DIA/ELL execution format, i.e. it runs at SpMV speed
+# instead of level-by-level.  Truncation makes the PC approximate
+# (slightly more Krylov iterations), the standard GPU trade
 # (Chow & Patel, "Fine-grained parallel incomplete LU", SISC 2015 — see
 # PAPERS.md "Parallel Triangular Solvers on GPU").
 # ---------------------------------------------------------------------------

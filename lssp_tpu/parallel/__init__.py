@@ -1,7 +1,7 @@
 """Distribution layer: row-partitioned matrices over a jax.sharding.Mesh,
-halo-exchange SpMV via shard_map + ICI collectives, psum-reduced dots
-(SURVEY §2.7 — the TPU-native communication backend the serial reference
-does not have)."""
+halo-exchange SpMV via shard_map collectives, psum-reduced dots
+(SURVEY §2.7 — the communication backend the serial reference does not
+have)."""
 
 from lssp_tpu.parallel import multihost
 

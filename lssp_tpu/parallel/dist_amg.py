@@ -7,7 +7,7 @@ the (small) level vector followed by local gathers, the coarsest solve is a
 row-sharded dense matmul against the replicated coarse inverse.  This is
 BASELINE config #5's "multi-host partition" path: the same program shape
 scales from the 8-virtual-device CPU mesh to a real pod slice (all
-collectives are `lax.all_gather`/`psum` over one mesh axis riding ICI).
+collectives are `lax.all_gather`/`psum` over one mesh axis).
 
 Communication accounting per V-cycle (P shards, level sizes n_l):
   all-gathers of x at each smoothing/transfer step — O(Σ n_l) ≈ 2·n_0 words,
@@ -154,7 +154,8 @@ def dist_vcycle(h: DistAMG, b_local, axis: str):
         lev = h.levels[l]
         if l == len(h.levels) - 1:
             b_full = lax.all_gather(b_l, axis, tiled=True)
-            return h.coarse_inv @ b_full
+            return jnp.matmul(h.coarse_inv, b_full,
+                              precision=jax.lax.Precision.HIGHEST)
         x_l = smooth(lev, x_l, b_l)
         r = b_l - _ag_spmv(lev.a_cols, lev.a_data, x_l, axis)
         rc = _ag_spmv(lev.r_cols, lev.r_data, r, axis)

@@ -1,10 +1,10 @@
 """Inside-shard_map device ops: halo-exchange SpMV and psum reductions.
 
 These run *per shard* under ``shard_map`` over a 1-D mesh axis.  The halo
-exchange is two ``lax.ppermute`` shifts over ICI (left and right neighbour),
-which XLA overlaps with the local gather; dots/norms are a local dot +
-``lax.psum`` — the only cross-chip synchronisation points in a Krylov
-iteration (SURVEY §3.3).
+exchange is two ``lax.ppermute`` shifts between neighbouring devices (left
+and right), which XLA overlaps with the local gather; dots/norms are a local
+dot + ``lax.psum`` — the only cross-device synchronisation points in a
+Krylov iteration (SURVEY §3.3).
 """
 from __future__ import annotations
 
@@ -12,28 +12,14 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from lssp_tpu.ops.spmv import dia_spmv_padded
 from lssp_tpu.parallel.partition import DistELL, DistDIA, DistHYB
-
-
-def _dia_local_spmv(data, x_ext, offsets, lo, R):
-    """Per-shard DIA product over the extended vector: Pallas stencil kernel
-    on TPU (roofline streaming), XLA shifted slices elsewhere."""
-    from lssp_tpu.ops.spmv import dia_pallas_ok
-    dtype = jnp.result_type(data.dtype, x_ext.dtype)
-    if dia_pallas_ok(dtype, R):
-        from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas_ext
-        return dia_spmv_pallas_ext(data, x_ext, offsets)
-    y = jnp.zeros(R, dtype=dtype)
-    for d, off in enumerate(offsets):
-        y = y + data[d] * lax.dynamic_slice(x_ext, (lo + off,), (R,))
-    return y
 
 
 def _make_dia_spmv(M: DistDIA, axis: str):
     P = M.nshards
     lo, hi = M.lo, M.hi
     offsets = M.offsets
-    R = M.rows_per_shard
 
     def op(data, x):
         # Halo exchange: my last lo values go right (arrive as the
@@ -49,7 +35,7 @@ def _make_dia_spmv(M: DistDIA, axis: str):
             left = [(i, (i - 1) % P) for i in range(P)]
             parts.append(lax.ppermute(x[:hi], axis, left))
         x_ext = jnp.concatenate(parts) if len(parts) > 1 else x
-        return _dia_local_spmv(data, x_ext, offsets, lo, R)
+        return dia_spmv_padded(data, offsets, x_ext, lo)
 
     return op
 
@@ -86,15 +72,14 @@ def _make_dia_spmv_t(M: DistDIA, axis: str):
 
 def _make_hyb_spmv(M: DistHYB, axis: str):
     """Band streams via the DIA halo exchange; the COO remainder gathers
-    from the all-gathered x (n values over ICI — the minimal correct
-    exchange for arbitrary off-band columns) and scatter-adds locally."""
+    from the all-gathered x (n values — the minimal correct exchange for
+    arbitrary off-band columns) and scatter-adds locally."""
     band_op = _make_dia_spmv(M.band, axis)
 
     def op(band_data, rr, rc, rv, x):
-        from lssp_tpu.ops.spmv import lane_gather
         y = band_op(band_data, x)
         x_full = lax.all_gather(x, axis, tiled=True)
-        return y.at[rr].add(rv * lane_gather(x_full, rc))
+        return y.at[rr].add(rv * x_full[rc])
 
     return op
 
@@ -104,13 +89,12 @@ def _make_hyb_spmv_t(M: DistHYB, axis: str):
     n = M.n
 
     def op_t(band_data, rr, rc, rv, x):
-        from lssp_tpu.ops.spmv import lane_gather
         y = band_op_t(band_data, x)
         # remainder entries (local row r, global col c): v·x[r] lands on
         # global row c; psum_scatter reduces the per-shard full-length
         # accumulations and hands each shard its slice
         z_full = jnp.zeros(n, dtype=y.dtype).at[rc].add(
-            rv * lane_gather(x, rr))
+            rv * x[rr])
         return y + lax.psum_scatter(z_full, axis, scatter_dimension=0,
                                     tiled=True)
 
@@ -234,8 +218,8 @@ def apply_dist_spmv(M_local, axis: str, x):
 def make_psum_dot(axis: str):
     """Distributed ⟨x,y⟩: local dot + psum over the mesh axis.
 
-    Local part is multiply+sum, not jnp.dot — the TPU fp64 vector
-    dot_general path loses ~1e-6 relative accuracy (see
+    Local part is multiply+sum, not jnp.dot, so no backend can route it
+    through a reduced-precision matrix unit (see
     lssp_tpu.solvers.base.vdot)."""
     def dot(x, y):
         return lax.psum(jnp.sum(x * y), axis)

@@ -1,6 +1,6 @@
-"""Distributed TPU-resident classical AMG (rsamg over the mesh).
+"""Distributed gather-free classical AMG (rsamg over the mesh).
 
-The round-5 classical hierarchy (amg/rs.py) rides the EXISTING dist_sa
+The classical hierarchy (amg/rs.py) rides the EXISTING dist_sa
 machinery unchanged, through one identity:
 
     P·ec  =  P̂ · broadcast(ec)          P̂ square, banded

@@ -1,6 +1,6 @@
 """Distributed structured smoothed-aggregation AMG.
 
-The multi-chip form of lssp_tpu/amg/sa.py — the V-cycle that rides ICI
+The multi-device form of lssp_tpu/amg/sa.py — the V-cycle that runs
 without gathers.  Key alignment property: with every level padded to a
 multiple of P·g (P shards, aggregate size g), each shard's rows are whole
 aggregates, so restriction/prolongation stay *shard-local reshapes* — the
@@ -260,7 +260,8 @@ def dist_sa_vcycle(h: DistSA, b_local, axis: str):
     def cycle(l, b_l, x_l):
         if l == len(h.levels):
             b_full = lax.all_gather(b_l, axis, tiled=True)
-            return h.coarse_inv @ b_full
+            return jnp.matmul(h.coarse_inv, b_full,
+                              precision=jax.lax.Precision.HIGHEST)
         lev = h.levels[l]
         Aop = lambda v: apply_dist_spmv(lev.A, axis, v)
         x_l = smooth(lev, Aop, x_l, b_l)

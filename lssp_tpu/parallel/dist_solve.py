@@ -2,7 +2,7 @@
 
 The entire Krylov iteration — including its ``lax.while_loop`` — runs inside
 one ``shard_map`` over a 1-D device mesh: vectors live row-sharded, SpMV
-does a neighbour halo exchange (or all-gather) over ICI, and every dot/norm
+does a neighbour halo exchange (or all-gather), and every dot/norm
 lowers to a local dot + ``lax.psum``.  The same solver functions from
 lssp_tpu.solvers are reused unchanged — they take the distributed operator
 and psum-dot as parameters.
@@ -270,8 +270,7 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int,
         # distributed classical AMG: the rs hierarchy expressed as a
         # DistSA (B := P-hat, C := P-hat^T, pair-reshape agg) — executed
         # by the SAME dist_sa_vcycle; falls back to the flat saamg plan
-        # when the matrix is not a shard-alignable lattice (mirrors the
-        # single-device pc="amg" routing)
+        # when the matrix is not a shard-alignable lattice
         from lssp_tpu.parallel.dist_rs import build_dist_rs
         h = build_dist_rs(A, Pn, theta=pc_opts.amg_theta,
                           max_levels=pc_opts.amg_max_levels,
@@ -323,10 +322,10 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int,
                 lev = 0 if pc_type == "ilu0" else pc_opts.iluk_level
                 L, U = iluk_factor(blk, level=lev)
             factors.append((L, U))
-        # triangular-solve strategy mirrors the single-chip PC
-        # (pc/ilu.py: make_ilu_pc): Chow Neumann sweeps on TPU (every
-        # sweep a shard-local DIA stream), exact level scan elsewhere/on
-        # request; -1 = exact via the complete series
+        # triangular-solve strategy mirrors the single-device PC
+        # (pc/ilu.py: make_ilu_pc): exact level scan by default, k > 0
+        # Chow Neumann sweeps (each a shard-local DIA stream), -1 = exact
+        # via the complete series
         from lssp_tpu.ops.trisolve import default_ilu_sweeps
         sweeps = pc_opts.ilu_sweeps
         if sweeps is None:
@@ -380,13 +379,12 @@ def _shard_pc_apply(kind, state, R, op=None, cycles=1):
         fn.t = fn                     # diagonal scaling is symmetric
         return fn
     if kind == "ilu_nm":
-        from lssp_tpu.parallel.dist_ops import _dia_local_spmv
+        from lssp_tpu.ops.spmv import spmv
+        from lssp_tpu.sparse.types import DIA
         st = state
 
         def _stream(data, offs, v):
-            lo = max(0, -min(offs)) if offs else 0
-            hi = max(0, max(offs)) if offs else 0
-            return _dia_local_spmv(data, jnp.pad(v, (lo, hi)), offs, lo, R)
+            return spmv(DIA(offs, data, (R, R)), v)
 
         def fn(r):
             y = _sweep_repeat(lambda y: r - _stream(st.Ldata, st.offL, y),
@@ -738,8 +736,8 @@ def _dist_launch(A: CSR, b, x0, method: str, pc, mesh,
     ``ir=True`` runs mixed-precision iterative refinement INSIDE the shard
     body: fp64 outer residuals through a second fp64-partitioned matrix,
     fp32 inner Krylov solves (the PC is factored/built in fp32), fp64
-    accumulation — the multi-chip answer to TPU's emulated fp64 (same
-    policy as solvers/refine.py, one shared _inner_plan).
+    accumulation (same policy as solvers/refine.py, one shared
+    _inner_plan).
     dist_solve / dist_solve_multi / dist_solve_ir* are thin wrappers."""
     opts = (options or SolverOptions()).resolved()
     pc_opts = (pc_options or PCOptions()).resolved()
@@ -828,7 +826,7 @@ def dist_solve(A: CSR, b, x0=None, method: str = "cg",
     """Distributed Ax=b over a 1-D mesh.  Returns (x (n,), SolveInfo).
 
     ``fmt`` selects the distributed execution format: "auto" prefers
-    gather-free DIA streaming (banded matrices — the TPU-fast path), falling
+    gather-free DIA streaming (banded matrices), falling
     back to padded-ELL halo exchange, then all-gather; "dia"/"halo"/
     "allgather" force one.  ``n`` need not divide the device count — rows
     are padded with identity equations (zero rhs) to the next multiple.
@@ -862,8 +860,8 @@ def dist_solve_ir(A: CSR, b, x0=None, method: str = "gmres",
                   inner_dtype=jnp.float32):
     """Distributed mixed-precision refinement: fp64-quality x over the
     mesh with the hot Krylov loop in fp32 (factors, hierarchy, SpMV all
-    inner-dtype) — the multi-chip production path on TPUs, which emulate
-    fp64.  The ENTIRE refinement (fp64 distributed residuals, fp32 inner
+    inner-dtype), moving half the bytes of an fp64 solve.  The ENTIRE
+    refinement (fp64 distributed residuals, fp32 inner
     shard program, fp64 accumulation) is one shard_map program.  Same
     inner policy as ``lssp_tpu.solve_ir`` (right-preconditioned mapping,
     stall-bounded inner cap); ``nits`` counts total inner iterations."""

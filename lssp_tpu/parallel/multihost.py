@@ -1,10 +1,10 @@
 """Multi-host runtime helpers.
 
 The reference's wrappers use strictly serial builds (`MPI_COMM_SELF`,
-/root/reference/src/solver-petsc.cxx:71); the TPU-native multi-host story is
-the JAX distributed runtime: each host runs the same program, GSPMD places
-collectives on ICI within a slice and DCN across slices — no hand-written
-networking (SURVEY §2.7).  These helpers make the common paths one-liners.
+/root/reference/src/solver-petsc.cxx:71); the multi-host story here is the
+JAX distributed runtime: each host runs the same program, GSPMD places the
+collectives within and across hosts — no hand-written networking
+(SURVEY §2.7).  These helpers make the common paths one-liners.
 """
 from __future__ import annotations
 
@@ -19,9 +19,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bring up the JAX distributed runtime (idempotent).
 
-    On Cloud TPU pods all arguments are auto-detected from the metadata
-    server; pass them explicitly elsewhere.  Must be called before any
-    device access on every host.
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly where no cluster environment provides them.
+    Must be called before any device access on every host.
     """
     if jax.process_count() > 1:
         return                          # already initialized
@@ -35,7 +35,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_mesh(axis: str = "shard"):
-    """1-D mesh over ALL devices of ALL hosts (ICI+DCN), for dist_solve."""
+    """1-D mesh over ALL devices of ALL hosts, for dist_solve."""
     from jax.sharding import Mesh
     return Mesh(np.asarray(jax.devices()), (axis,))
 

@@ -57,10 +57,9 @@ class DistDIA:
     diagonal slots store 0, so no edge masking is needed anywhere — ring
     wrap-around garbage in the halos is always multiplied by a stored zero.
 
-    Replaces the ELL-gather distributed path (~1 GB/s on TPU) with the
-    Pallas DIA stencil kernel per shard (~620 GB/s measured single-chip) —
-    the distributed contract of /root/reference/src/mvops.cxx:5-39 at
-    roofline bandwidth.
+    Replaces the ELL-gather distributed path with the static-slice DIA
+    product per shard (ops/spmv.py: dia_spmv_padded) — the distributed
+    contract of /root/reference/src/mvops.cxx:5-39 as one streaming pass.
     """
 
     data: Any                  # (P, ndiag, R)
@@ -134,9 +133,9 @@ def partition_csr_dia(A: CSR, nshards: int, max_diags: int = 256,
 class DistHYB:
     """Row-partitioned hybrid: per-shard DIA band (halo ppermute exchange,
     gather-free streaming) + a per-shard COO remainder applied against the
-    all-gathered x.  The all-gather moves n values over ICI — for a
-    remainder of any size that is the minimal correct exchange, and the
-    band part still streams at roofline.  Remainder triplets are stored
+    all-gathered x.  The all-gather moves n values — for a remainder of
+    any size that is the minimal correct exchange, and the band part
+    still streams.  Remainder triplets are stored
     with LOCAL row indices and GLOBAL column indices, zero-padded to a
     common per-shard length.
     """
@@ -217,7 +216,7 @@ def partition_csr_hyb(A: CSR, nshards: int, max_diags: int = 256,
 
 def partition_matrix(A: CSR, nshards: int, fmt: str = "auto"):
     """Pick the distributed execution format: DIA streaming when the matrix
-    is banded (the TPU-fast path), band+remainder hybrid when nearly
+    is banded, band+remainder hybrid when nearly
     banded, padded-ELL halo/all-gather otherwise."""
     if fmt in ("auto", "dia"):
         try:

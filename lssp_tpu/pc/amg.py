@@ -18,33 +18,6 @@ def _amg_apply(state, r):
 
 @register_pc("amg")
 def setup_amg(A, opts):
-    import jax
-    if jax.default_backend() == "tpu":
-        # TPU-resident classical cycle (amg/rs.py: aligned axis-pair
-        # coarsening + aggregated-diagonal interpolation — gather-free at
-        # every level).  Built for LATTICE matrices, where classical
-        # coarsening beats aggregation (r5 table in docs/performance.md:
-        # rsamg 9 vs saamg 15 its on poisson3d, 7 vs 13 anisotropic); on
-        # matrices with no detectable lattice the flat-group classical
-        # interpolation measured WORSE than aggregation (coupled3d: 20 vs
-        # 8 its), so those route to the structured-SA cycle — as does any
-        # matrix whose interpolation offsets overflow the gather-free
-        # layout (kept-mass gate).  amg_force_classical pins rsamg;
-        # pc="rsamg" requests it explicitly on any matrix.
-        from lssp_tpu.amg.rs import detect_grid3, setup_rs_pc
-        pc = None
-        if opts.amg_force_classical or detect_grid3(A) is not None:
-            pc = setup_rs_pc(A, opts, reject_below=0.0
-                             if opts.amg_force_classical else 0.85)
-        if pc is not None:
-            return pc
-        from lssp_tpu.utils.log import warning
-        warning("pc='amg': no lattice structure (or interpolation too "
-                "non-local) for the gather-free classical layout on this "
-                "matrix; using the structured-SA cycle instead — set "
-                "PCOptions(amg_force_classical=True) to override")
-        from lssp_tpu.amg.sa import setup_saamg_pc
-        return setup_saamg_pc(A, opts)
     hier = amg_setup(A, theta=opts.amg_theta, max_levels=opts.amg_max_levels,
                      coarse_size=opts.amg_coarse_size,
                      smooth_interp=opts.amg_smooth_interp,
@@ -59,18 +32,17 @@ def setup_amg(A, opts):
 
 @register_pc("saamg")
 def setup_saamg(A, opts):
-    """Structured smoothed-aggregation AMG — the gather-free TPU-fast
-    multigrid (LIS saamg capability; see lssp_tpu/amg/sa.py)."""
+    """Structured smoothed-aggregation AMG — the gather-free multigrid
+    (LIS saamg capability; see lssp_tpu/amg/sa.py)."""
     from lssp_tpu.amg.sa import setup_saamg_pc
     return setup_saamg_pc(A, opts)
 
 
 @register_pc("rsamg")
 def setup_rsamg(A, opts):
-    """TPU-resident classical (Ruge–Stüben-type) AMG: aligned axis-pair
+    """Gather-free classical (Ruge–Stüben-type) AMG: aligned axis-pair
     coarsening, classical direct interpolation, aggregated-diagonal
-    gather-free transfers (see lssp_tpu/amg/rs.py).  This is what
-    pc='amg' resolves to on the TPU backend; registered separately so
-    the classical gather-free cycle is addressable on any backend."""
+    transfers (see lssp_tpu/amg/rs.py).  pc='amg' builds the classical
+    ELL hierarchy instead."""
     from lssp_tpu.amg.rs import setup_rs_pc
     return setup_rs_pc(A, opts)

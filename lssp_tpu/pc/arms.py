@@ -2,7 +2,7 @@
 
 Capability parity with the reference's ITSOL ARMS adapter
 (/root/reference/src/pc-arms.cxx:83-153: ``arms2`` setup + ``armsol2``
-apply) — reimplemented natively with a TPU-first structure (independent-set
+apply) — reimplemented natively with a data-parallel structure (independent-set
 elimination, ILUM-family):
 
 setup (host, per level):
@@ -21,7 +21,7 @@ apply (device, all levels unrolled in one jitted program):
      z_c = M_S⁻¹ (r_c − E y_f)    (recursive)
      z_f = B⁻¹ (r_f − F z_c)      (SpMV + elementwise)
 No triangular recurrences outside the coarsest LU — every level is SpMV +
-VPU work, which is exactly what TPU executes at full bandwidth.
+elementwise work, which streams at full bandwidth.
 """
 from __future__ import annotations
 

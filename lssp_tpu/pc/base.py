@@ -2,12 +2,12 @@
 
 Parity map (reference /root/reference/src/pc.cxx:81-239 dispatch):
   NONE   → identity copy              (pc.cxx:67-79)
-  JACOBI → diagonal scaling           (new: trivial TPU-friendly baseline)
+  JACOBI → diagonal scaling           (new: trivial baseline)
   ILUK   → level-of-fill ILU          (pc-iluk.cxx)
   ILUT   → dual-threshold ILU         (pc-ilut.cxx)
   BILUK  → block ILU(k) on BSR        (pc-biluk.cxx)
   AMG    → native classical AMG V-cycle (replaces the FASP/SXAMG/MI20
-           external AMG wrappers with a from-scratch TPU implementation)
+           external AMG wrappers with a from-scratch implementation)
   USER   → caller-supplied setup/apply (pc.cxx:219-227)
 """
 from __future__ import annotations
@@ -83,8 +83,8 @@ def setup(A, pc_type: str = "none", opts: PCOptions = None) -> Preconditioner:
                          f"available: {sorted(PC_REGISTRY)}")
     M = PC_REGISTRY[key](A, opts)
     # commit the state to the device once: host-numpy leaves passed as jit
-    # arguments would otherwise be re-transferred on EVERY solve call
-    # (measured 2.4x per-solve overhead at 1M rows, far worse at 16M+).
+    # arguments would otherwise be re-transferred on EVERY solve call,
+    # a cost that grows with the matrix.
     # Leaf-guarded: user PCs may carry arbitrary host objects in their state.
     def _put(leaf):
         if hasattr(leaf, "shape") and hasattr(leaf, "dtype"):

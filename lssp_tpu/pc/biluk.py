@@ -13,9 +13,9 @@ Host factorization reproduces the reference's math with row-major blocks:
   the multipliers, unit-block-diagonal Û holding ``inv(A_ii)·A_ij``, and
   the block-diagonal D = inv(A_ii)
 
-Apply (lssp_pc_bilu_solve, :22-60): z = Û⁻¹ · D · L⁻¹ · r.  On TPU each
-piece is block-granular: level-scheduled block sweeps (einsum batched GEMM)
-plus one batched block-diagonal GEMV — all MXU work, no scalar expansion.
+Apply (lssp_pc_bilu_solve, :22-60): z = Û⁻¹ · D · L⁻¹ · r.  Each piece is
+block-granular: level-scheduled block sweeps (einsum batched GEMM) plus one
+batched block-diagonal GEMV — no scalar expansion.
 """
 from __future__ import annotations
 
@@ -232,7 +232,7 @@ def _bilu_neumann_apply(sweeps, state, r):
     """Chow-style iterative block-triangular solves: the unit-block factors
     L̂ = I + L_strict and Û = I + Û_strict invert as truncated Neumann
     series, each sweep one gather-free BDIA block SpMV — the block analog
-    of the scalar path in ops/trisolve.py (default on TPU)."""
+    of the scalar path in ops/trisolve.py (``ilu_sweeps`` > 0)."""
     from lssp_tpu.ops.spmv import spmv
     Lb, dinv, Ub = state
     y = r
@@ -247,7 +247,7 @@ def _bilu_neumann_apply(sweeps, state, r):
 
 def _pack_bilu_pc(factors, name, sweeps):
     """Assemble the block-ILU Preconditioner from raw strict factors:
-    Neumann sweeps over BDIA factors (TPU default) when the factors are
+    Neumann sweeps over BDIA factors (``ilu_sweeps`` != 0) when the factors are
     block-banded, exact block-level scheduling otherwise."""
     import functools
 
@@ -322,8 +322,8 @@ def setup_bilut(A, opts):
 #     pc-vbiluk.cxx:8-65 / pc-vbilut.cxx:7-76, driven by the user-supplied
 #     s.blk_size[] array, include/type-defs.h:288-289) -----------------------
 #
-# TPU-native design: variable blocks batch poorly on the MXU (ragged GEMM
-# shapes defeat XLA tiling), so each variable block is EMBEDDED into a
+# Design: variable blocks batch poorly (ragged GEMM shapes defeat XLA
+# tiling), so each variable block is EMBEDDED into a
 # uniform bs_max block — off-block padding is zero, padded diagonal slots
 # carry 1 — and the uniform-BSR machinery above runs unchanged on static
 # shapes.  The embedding indices live in the PC state; apply scatters r in,
@@ -383,7 +383,7 @@ def _setup_vbilu(A, opts, variant):
         factors = bilut_factor_bsr(B, tol=opts.ilut_tol, p=opts.ilut_p,
                                    raw=True)
     # route through _pack_bilu_pc like biluk/bilut so PCOptions.ilu_sweeps
-    # and the TPU Neumann-sweep default apply uniformly to variable blocks
+    # and the Neumann-sweep option apply uniformly to variable blocks
     inner = _pack_bilu_pc(factors, variant, opts.ilu_sweeps)
     import functools
     import jax.numpy as jnp

@@ -26,11 +26,6 @@ def _neumann_apply_fn(state, r):
     return neumann_ilu_apply(state, r)
 
 
-def _fused_apply_fn(state, r):
-    from lssp_tpu.ops.pallas_neumann import fused_neumann_apply
-    return fused_neumann_apply(state, r)
-
-
 def _neumann_apply_t_fn(state, r):
     return neumann_ilu_apply_t(state, r)
 
@@ -39,15 +34,12 @@ def make_ilu_pc(L, U, name, sweeps=None, transpose=False):
     """Wrap split L/U factors as a device Preconditioner.
 
     sweeps=0: exact level-scheduled triangular solves.
-    sweeps>0: Chow-style iterative solves — each sweep one SpMV at full VPU
-    bandwidth (measured ~140x faster application on v5e at 32k rows, with
-    +0..3 Krylov iterations at 6 sweeps).
+    sweeps>0: Chow-style iterative solves — each sweep one SpMV (+0..3
+    Krylov iterations at 6 sweeps on the acceptance problems).
     sweeps=-1: EXACT via the complete Neumann series — the strict factors
     are nilpotent, so `nlevels` sweeps reproduce the substitution result
-    while every sweep stays a full-bandwidth SpMV (a TPU-fast exact path:
-    ~nlevels/6 times the 6-sweep cost, still several times faster than the
-    level-scheduled scan's per-level gathers).
-    sweeps=None: auto — 6 on the TPU backend, exact elsewhere.
+    while every sweep stays a full-bandwidth SpMV.
+    sweeps=None: auto — ``default_ilu_sweeps()`` (exact).
     transpose=True additionally installs the exact M⁻ᵀ apply (BiCG/QMR);
     the Neumann path supports it with no extra state."""
     from lssp_tpu.ops.trisolve import default_ilu_sweeps, neumann_exact_depth
@@ -62,20 +54,6 @@ def make_ilu_pc(L, U, name, sweeps=None, transpose=False):
             tris.append((S.indptr, S.indices, T.shape[0], lower))
         sweeps = neumann_exact_depth(tris)
     if sweeps > 0:
-        # fused whole-apply Pallas kernel: when the factors fit VMEM the
-        # 2·k sweeps run as ONE fp32 device program instead of 2·k XLA
-        # SpMVs — measured 1.9 ms → ~0.05 ms per apply on the 15.6k-row
-        # coupled3d acceptance config (ops/pallas_neumann.py).  Transpose
-        # applies keep the XLA Neumann path (rare; BiCG/QMR only).
-        import jax
-        if (jax.default_backend() == "tpu" and not transpose
-                and sweeps <= 16):
-            from lssp_tpu.ops.pallas_neumann import (
-                plan_fused_neumann, fused_neumann_apply)
-            fstate = plan_fused_neumann(L, U, sweeps)
-            if fstate is not None:
-                return Preconditioner(_fused_apply_fn, state=fstate,
-                                      name=f"{name}-fn{sweeps}")
         state = make_neumann_tri(L, U, sweeps=sweeps)
         return Preconditioner(_neumann_apply_fn, state=state,
                               name=f"{name}-n{sweeps}",
@@ -124,7 +102,7 @@ def setup_ilutp(A, opts):
     """ILUT with column pivoting (LIS ``ilutp`` capability) — robust on
     matrices with small/zero diagonals.  Factors L·U ≈ A[:, perm];
     the permuted factors ride the standard ILU apply machinery (exact
-    level scheduling or TPU Neumann sweeps via ``ilu_sweeps``), with the
+    level scheduling or Neumann sweeps via ``ilu_sweeps``), with the
     permutation undone in the apply."""
     import functools
     import jax.numpy as jnp

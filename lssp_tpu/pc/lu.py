@@ -7,7 +7,7 @@ factorization on the host (lssp_tpu/pc/lu_host.py, C++ fast path), exact
 level-scheduled triangular sweeps on the device.  One PC application is an
 exact solve up to pivot clamping — as a preconditioner it converges any
 Krylov method in one iteration; inside ``solve_ir`` it gives a direct
-solver with fp64-quality answers on fp32 TPU hardware.
+solver with fp64-quality answers from fp32 factors.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def _lu_apply_t(state, r):
                          "PCOptions(transpose=True) at setup")
     # inverse permutations are precomputed at setup: this apply runs once
     # per Krylov iteration inside a jitted while_loop, and a device argsort
-    # per application would dominate the triangular sweeps on TPU
+    # per application would dominate the triangular sweeps
     _, _, _, _, sut, slt, inv_out, inv_in = state
     from lssp_tpu.ops.trisolve import ilu_apply_t
     y = ilu_apply_t(sut, slt, r[inv_out])

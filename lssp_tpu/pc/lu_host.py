@@ -8,7 +8,7 @@ left-looking Gilbert–Peierls LU with threshold partial pivoting, RCM
 fill-reducing pre-ordering, factored once on the host; the triangular
 solves then run on the device as level-scheduled sweeps
 (lssp_tpu/ops/trisolve.py), so repeated solves with new right-hand sides
-are pure device programs — the TPU analog of the reference's cached
+are pure device programs — the device analog of the reference's cached
 ``factored`` flag (solver-umfpack.cxx:43-44).
 
 The C++ kernel in lssp_tpu/native/src/splu.cpp is the fast path; the Python

@@ -1,6 +1,6 @@
 """Polynomial (Chebyshev) preconditioner.
 
-The most TPU-native preconditioner class: the apply is ``degree`` SpMVs and
+The most data-parallel preconditioner class: the apply is ``degree`` SpMVs and
 axpys — no triangular recurrences, no gathers, runs at full streaming
 bandwidth for DIA matrices.  M⁻¹ ≈ p(A) where p is the degree-d Chebyshev
 polynomial minimizing ‖1 − λ·p(λ)‖ over an eigenvalue interval
@@ -63,7 +63,6 @@ def _poly_apply(degree, lb, ub, state, r, transpose=False):
 
 @register_pc("poly")
 def setup_poly(A, opts):
-    import jax
     from lssp_tpu.sparse.convert import to_device_format
     if opts.poly_degree < 1:
         raise ValueError(f"poly PC requires poly_degree >= 1, "
@@ -71,13 +70,8 @@ def setup_poly(A, opts):
     lmax = _power_lmax(A)
     ub = 1.05 * lmax
     lb = ub / max(opts.poly_ratio, 1.0 + 1e-6)
-    # same execution-format thresholds as the solver's own matrix (the
-    # facade uses wide DIA limits on TPU) — otherwise a 33+-diagonal banded
-    # matrix would silently fall back to gather ELL inside the PC only
-    if jax.default_backend() == "tpu":
-        Adev = to_device_format(A, max_diags=256, dia_fill=50.0)
-    else:
-        Adev = to_device_format(A)
+    # same execution-format thresholds as the solver's own matrix
+    Adev = to_device_format(A)
     d = int(opts.poly_degree)
     apply_fn = functools.partial(_poly_apply, d, lb, ub)
     # p(A)ᵀ = p(Aᵀ): the transpose apply runs the same recurrence on spmv_t

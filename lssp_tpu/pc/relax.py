@@ -5,7 +5,7 @@ SSOR (/root/reference/src/solver-laspack.cxx:29-34) and LIS exposes
 ssor/gs among its 10 PCs (/root/reference/src/solver-lis.cxx:8-41); the
 reference has no native implementation.
 
-TPU-native construction: both factor exactly into the ILU apply machinery,
+Construction: both factor exactly into the ILU apply machinery,
 
     M_SSOR = 1/(ω(2−ω)) (D + ωLₛ) D⁻¹ (D + ωUₛ)
            = (I + ωLₛD⁻¹) · [ (D + ωUₛ) / (ω(2−ω)) ]      (unit-L · U)
@@ -13,7 +13,7 @@ TPU-native construction: both factor exactly into the ILU apply machinery,
            = (I + ωLₛD⁻¹) · (D/ω)                          (unit-L · U)
 
 so ``make_ilu_pc`` provides level-scheduled exact solves, Chow-style
-Neumann sweeps on TPU, and the transpose applies (BiCG/QMR) with zero new
+Neumann sweeps (``ilu_sweeps`` > 0), and the transpose applies (BiCG/QMR) with zero new
 device code.  Gauss–Seidel is SOR with ω = 1.
 """
 from __future__ import annotations

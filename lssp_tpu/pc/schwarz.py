@@ -5,15 +5,15 @@ solves through ``fasp_solver_dcsr_krylov_Schwarz``
 (/root/reference/src/solver-fasp.cxx:161-193); the reference has no native
 implementation.
 
-TPU-first construction: subdomains are **contiguous row ranges** (the same
+Construction: subdomains are **contiguous row ranges** (the same
 banded-ordering assumption the rest of the framework relies on), extended
 by ``overlap`` rows on both sides.  Because the ranges are uniform, each
 subdomain's residual window is a *contiguous slice* of a padded vector —
 no gathers.  The per-subdomain ILU factors are assembled into one
 **block-diagonal** L/U over the concatenated windows, so the whole local
 solve reuses the standard ILU apply machinery: exact level scheduling
-batches all subdomains into shared level sweeps on CPU, and the Chow-style
-Neumann sweeps (default on TPU) run it as a handful of full-width SpMVs.
+batches all subdomains into shared level sweeps, and the Chow-style
+Neumann sweeps (``ilu_sweeps`` > 0) run it as a handful of full-width SpMVs.
 The "restricted" update takes only each subdomain's owned rows
 (Cai & Sarkis RAS — generally better than classical AS as a PC).
 """

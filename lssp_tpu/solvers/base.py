@@ -42,13 +42,12 @@ class SolveInfo:
 def vdot(a, b):
     """Vector inner product as multiply + sum-reduce.
 
-    NOT ``jnp.dot``: on the TPU backend an fp64 vector ``dot_general`` goes
-    through a lossy emulated-MXU path (~5e-6 relative error measured on a
-    v5e for n=4096 — enough to break the Arnoldi/Givens residual recurrence
-    and defeat GMRES's in-cycle convergence test), and
-    ``precision=HIGHEST`` does not repair it.  An elementwise multiply +
-    ``jnp.sum`` reduction is bit-accurate in fp64 and equally fast for
-    vectors on every backend (one fused pass)."""
+    NOT ``jnp.dot``: a ``dot_general`` may be lowered through a
+    reduced-precision matrix unit (TF32 for fp32 on the GPU unless the
+    precision is pinned), which breaks the Arnoldi/Givens residual
+    recurrence and GMRES's in-cycle convergence test.  An elementwise
+    multiply + ``jnp.sum`` reduction keeps the input precision and is
+    equally fast for vectors on every backend (one fused pass)."""
     return jnp.sum(a * b)
 
 
@@ -99,9 +98,9 @@ def dot_rows(dot, V, w):
 def basis_combine(ym, V):
     """x-correction Σ ym[i]·V[i] as broadcast-multiply + reduce.
 
-    Same rationale as ``vdot``: ``ym @ V`` is a dot_general, which on the
-    TPU fp64 emulation path caps the achievable solution accuracy at ~1e-6
-    relative; the reduce formulation is exact."""
+    Same rationale as ``vdot``: ``ym @ V`` is a dot_general whose
+    precision the backend may lower; the reduce formulation keeps the
+    input precision."""
     return jnp.sum(ym[:, None] * V, axis=0)
 
 
@@ -246,8 +245,8 @@ def history_print_host_multi(info: "SolveInfo", k: int) -> None:
 def history_print_host(info: "SolveInfo") -> None:
     """Host-side fallback for the per-iteration trace: print the recorded
     residual history in the reference's line format after the solve
-    completes.  Used when the backend cannot run jax.debug.print (remote
-    PJRT plugins without host callbacks)."""
+    completes.  Used when the backend cannot run jax.debug.print (PJRT
+    plugins without host callbacks)."""
     import numpy as np
     from lssp_tpu.utils.log import log as _log_line
 

@@ -2,7 +2,7 @@
 
 No reference counterpart (the serial C++ library re-solves per rhs,
 lssp_solver_reset_rhs — /root/reference/src/lssp.cxx:470-489); this is the
-TPU-native serving answer beyond ``solve_multi``'s vmapped independent
+serving answer beyond ``solve_multi``'s vmapped independent
 solves: all k rhs share ONE Krylov search block, so
 
 - the matrix is read once per iteration for the whole block (same traffic
@@ -32,8 +32,8 @@ to a recomputed residual, and restart-on-breakdown (fresh search block);
 two consecutive post-restart breakdowns exit honestly unconverged.
 
 fp64-dot hazard: the k×k Grams are computed as mul+sum contractions via k
-batched column reductions, never one (n,k)ᵀ(n,k) dot_general (lossy
-emulated-MXU path on TPU, see solvers/base.py: vdot).
+batched column reductions, never one (n,k)ᵀ(n,k) dot_general (whose
+precision the backend may lower, see solvers/base.py: vdot).
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ Right-preconditioned, restart-cycle structure (restart m = opts.restart):
     Y = argmin ‖E₁S₀ − H̄Y‖_F   (small dense QR, per-column separable)
     X += M⁻¹(V·Y);  R = B − A·X  → exit on the TRUE residual per column
 
-TPU-first choices:
+Design choices:
 - **CholQR² + block CGS2** instead of column-wise MGS/Householder: every
   orthogonalization step is a stacked mul+sum Gram over the whole basis —
   4 reductions per block column regardless of the column index (the same
@@ -42,8 +42,8 @@ TPU-first choices:
   exit test uses the recomputed true residual.
 
 fp64-dot hazard: every large contraction (Grams, basis combines) is a
-column-broadcast mul+sum, never an (n,·)ᵀ(n,·) dot_general (lossy
-emulated-MXU path on TPU, see solvers/base.py: vdot); the dense QR only
+column-broadcast mul+sum, never an (n,·)ᵀ(n,·) dot_general (whose
+precision the backend may lower, see solvers/base.py: vdot); the dense QR only
 ever sees the small replicated H̄.
 """
 from __future__ import annotations

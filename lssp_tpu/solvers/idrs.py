@@ -4,7 +4,7 @@ orthonormalized random vectors (deterministic seed, :139-144 — here a fixed
 jax PRNG key), s warm-up minimal-residual steps building dX/dR and the s×s
 Gram matrix M, then the IDR recurrence with ω recomputed every (s+1)-th step
 (:190-215).  The s×s system Mc = m is solved with a dense LU
-(jnp.linalg.solve) — on TPU this is a trivially small MXU op."""
+(jnp.linalg.solve) — a trivially small dense op."""
 from __future__ import annotations
 
 import jax

@@ -9,8 +9,8 @@ for multi-chip latency: standard CG's per-iteration dot census is 2 dots +
 Here the three reductions are *merged into one* (γ = ⟨r,u⟩, δ = ⟨w,u⟩ and
 ‖r‖² share a single stacked psum via ``dot_many``) and all vector updates
 hang off recurrences, so one iteration costs exactly ONE cross-chip
-reduction latency — the TPU-native answer when per-shard n is small enough
-that ICI/DCN latency, not bandwidth, dominates.
+reduction latency — the answer when per-shard n is small enough that
+interconnect latency, not bandwidth, dominates.
 
 Trade-off: 4 extra vector recurrences (z, q, s, w) ⇒ more HBM traffic per
 iteration and slightly weaker rounding behavior than classic CG (the

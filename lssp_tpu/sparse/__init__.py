@@ -1,15 +1,15 @@
 """Sparse matrix containers and host-side tooling.
 
 Formats (parity with /root/reference/include/type-defs.h:15-62 plus two
-TPU-execution formats that the serial reference has no analog of):
+device execution formats that the serial reference has no analog of):
 
 - ``COO``  — triplet assembly format            (reference type-defs.h:26-35)
 - ``CSR``  — canonical compressed-sparse-row    (reference type-defs.h:15-24)
-- ``BSR``  — uniform block CSR, row-major dense blocks for the MXU
+- ``BSR``  — uniform block CSR, row-major dense blocks for batched GEMM
              (reference stores column-major "as Fortran", type-defs.h:45-55;
              we keep row-major because jnp/einsum batched GEMM is row-major)
-- ``ELL``  — padded ELLPACK, the TPU gather-SpMV execution format
-- ``DIA``  — diagonal storage, the TPU stencil-matrix execution format
+- ``ELL``  — padded ELLPACK, the gather-SpMV execution format
+- ``DIA``  — diagonal storage, the stencil-matrix execution format
 - ``HYB``  — band + remainder hybrid for nearly-banded general matrices
 """
 

@@ -2,8 +2,8 @@
 
 Semantics follow /root/reference/src/matrix-utils.cxx: COO→CSR is a counting
 sort that sums duplicates (:324-380), CSR↔BSR requires an exact uniform block
-partition (:62-215).  ELL/DIA are new TPU execution formats with no reference
-analog.
+partition (:62-215).  ELL/DIA/HYB are device execution formats with no
+reference analog.
 """
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ def csr_to_bsr(A: CSR, blocksize: int) -> BSR:
     """CSR→uniform-block BSR (reference csr→bcsr, matrix-utils.cxx:62-162).
 
     Every scalar nnz lands inside some bs×bs block; blocks are materialized
-    dense (explicit zeros), row-major for MXU-batched GEMM.
+    dense (explicit zeros), row-major for batched GEMM.
     """
     n, m = A.shape
     bs = int(blocksize)
@@ -231,13 +231,11 @@ def csr_to_hyb(A: CSR, max_diags: int = 256, min_occ: float = 0.02,
     """CSR→hybrid band + remainder: the up-to-``max_diags`` most-occupied
     diagonals (each holding ≥ ``min_occ``·n entries) stream as DIA; the
     leftover entries become a COO triplet remainder (gather + scatter-add,
-    cost proportional to the remainder count — measured 340× faster than a
-    padded-ELL remainder at 1M rows / 0.5% strays).
+    cost proportional to the remainder count, where a padded-ELL remainder
+    would touch every n·k slot).
 
     Raises ``ValueError`` when the band would cover less than ``min_cover``
-    of the nnz — then plain ELL is no worse and far simpler.  A 95%-banded
-    SuiteSparse matrix runs at ~95% of DIA streaming speed instead of
-    falling off the ~1 GB/s whole-matrix gather cliff.
+    of the nnz — then plain ELL is no worse and far simpler.
     """
     n, m = A.shape
     rows, d_all, offs = csr_entry_offsets(A.indptr, A.indices, n)
@@ -260,115 +258,24 @@ def csr_to_hyb(A: CSR, max_diags: int = 256, min_occ: float = 0.02,
     data_dia[d_idx, rows[in_band]] = dat[in_band]
     dia = DIA(tuple(int(o) for o in kept), data_dia, A.shape)
 
-    # remainder triplets, zero-padded at (0, 0) to a lane-friendly length
+    # remainder triplets; padding targets (n-1, 0) with value 0, so
+    # rem_rows stays SORTED (CSR order) for the indices_are_sorted scatter
     r_rem, c_rem, v_rem = rows[~in_band], cols[~in_band], dat[~in_band]
-    win = _remainder_windows(r_rem, c_rem, v_rem, n, dat.dtype, pad_to)
-    win.update(_remainder_tiles(r_rem, c_rem, v_rem, n, dat.dtype,
-                                tuple(int(o) for o in kept)))
-    # padding targets (n-1, 0) with value 0: row n-1 keeps rem_rows SORTED
-    # (CSR order), which lets the scatter-add take the vectorized
-    # indices_are_sorted path (TPU-measured 5× — ops/spmv.py)
     npad = _round_up(max(len(v_rem), 1), pad_to) - len(v_rem)
     r_rem = np.concatenate([r_rem, np.full(npad, n - 1, np.int64)])
     c_rem = np.concatenate([c_rem, np.zeros(npad, np.int64)])
     v_rem = np.concatenate([v_rem, np.zeros(npad, dat.dtype)])
     return HYB(dia=dia, rem_rows=r_rem.astype(np.int32),
                rem_cols=c_rem.astype(np.int32), rem_vals=v_rem,
-               shape=A.shape, **win)
-
-
-def _remainder_tiles(r, c, v, n, dtype, offsets, max_ts=4096,
-                     max_waste=8.0):
-    """Re-lay remainder triplets into TS slots per KERNEL row-tile (the
-    TPU MXU scatter epilogue, ops/pallas_spmv.py:
-    _dia_spmv_hyb_tc_pallas).  TS is the smallest power of two covering
-    the fullest tile, so NOTHING spills; returns all-None when the
-    layout would be pathological (TS over ``max_ts`` or total slots over
-    ``max_waste``× the entry count — heavily clustered remainders).
-
-    The tile size must match the kernel's grid exactly; both sides use
-    ops/pallas_spmv.py: hyb_tile_rows (fp32 itemsize — the Pallas path
-    only runs fp32/bf16, and a bf16 call recomputes a different tile and
-    falls back to the window layout)."""
-    none = dict(tc_cols=None, tc_vals=None, tc_win=None, tc_lane=None,
-                tile_rows=None)
-    if len(r) == 0 or np.dtype(dtype).itemsize != 4:
-        return none
-    from lssp_tpu.ops.pallas_spmv import hyb_tile_rows
-    T = hyb_tile_rows(n, offsets, 4)
-    nb = -(-max(n, 1) // T)
-    t = (r // T).astype(np.int64)
-    cnt = np.bincount(t, minlength=nb)
-    ts = 8
-    while ts < int(cnt.max()):
-        ts *= 2
-    if ts > max_ts or ts * nb > max_waste * max(len(r), 1):
-        return none
-    order = np.argsort(t, kind="stable")
-    rs, cs, vs, tsrt = r[order], c[order], v[order], t[order]
-    starts = np.concatenate(([0], np.cumsum(cnt)))
-    slot = np.arange(len(rs), dtype=np.int64) - starts[tsrt]
-    tc_c = np.zeros((nb, ts), np.int32)
-    tc_v = np.zeros((nb, ts), dtype)
-    tc_w = np.zeros((nb, ts), np.int32)
-    tc_l = np.zeros((nb, ts), np.int32)
-    tc_c[tsrt, slot] = cs
-    tc_v[tsrt, slot] = vs
-    tc_w[tsrt, slot] = (rs % T) // 128
-    tc_l[tsrt, slot] = rs % 128
-    return dict(tc_cols=tc_c, tc_vals=tc_v, tc_win=tc_w, tc_lane=tc_l,
-                tile_rows=int(T))
-
-
-def _remainder_windows(r, c, v, n, dtype, pad_to=8, max_slots=16,
-                       max_waste=4.0):
-    """Re-lay remainder triplets into S slots per 128-row window (the TPU
-    kernel's dense one-hot scatter epilogue, ops/pallas_spmv.py).  S is the
-    smallest power of two ≤ ``max_slots`` whose spill stays under 10% of
-    the entries; spilled entries go to the ovr_* scalar-scatter triplets.
-    Returns all-None when the slot padding would exceed ``max_waste``×
-    the entry count (clustered remainders on a tiny fraction of windows —
-    the scalar path is better there)."""
-    none = dict(win_cols=None, win_lane=None, win_vals=None,
-                ovr_rows=None, ovr_cols=None, ovr_vals=None)
-    if len(r) == 0:
-        return none
-    nwin = -(-n // 128)
-    w = (r // 128).astype(np.int64)
-    order = np.argsort(w, kind="stable")
-    r, c, v, w = r[order], c[order], v[order], w[order]
-    cnt = np.bincount(w, minlength=nwin)
-    # slot index of each entry inside its window (0,1,2,... in row order)
-    starts = np.concatenate(([0], np.cumsum(cnt)))
-    slot = np.arange(len(r), dtype=np.int64) - starts[w]
-    S = 1
-    while S < max_slots and (slot >= S).sum() > 0.10 * len(r):
-        S *= 2
-    if S * nwin > max_waste * max(len(r), 1) and S > 1:
-        return none
-    inwin = slot < S
-    wc = np.zeros((S, nwin), np.int32)
-    wl = np.zeros((S, nwin), np.int32)
-    wv = np.zeros((S, nwin), dtype)
-    wc[slot[inwin], w[inwin]] = c[inwin]
-    wl[slot[inwin], w[inwin]] = r[inwin] % 128
-    wv[slot[inwin], w[inwin]] = v[inwin]
-    ro, co, vo = r[~inwin], c[~inwin], v[~inwin]
-    # pad rows with n-1 (not 0) so ovr_rows stays sorted — see csr_to_hyb
-    npad = _round_up(max(len(vo), 1), pad_to) - len(vo)
-    ro = np.concatenate([ro, np.full(npad, n - 1, np.int64)]).astype(np.int32)
-    co = np.concatenate([co, np.zeros(npad, np.int64)]).astype(np.int32)
-    vo = np.concatenate([vo, np.zeros(npad, dtype)])
-    return dict(win_cols=wc, win_lane=wl, win_vals=wv,
-                ovr_rows=ro, ovr_cols=co, ovr_vals=vo)
+               shape=A.shape)
 
 
 def to_device_format(A: CSR, max_diags: int = 32, dia_fill: float = 2.0,
                      hyb_diags: int = 256):
-    """Pick the TPU execution format for a CSR matrix.
+    """Pick the device execution format for a CSR matrix.
 
     DIA when the diagonal count is small and storage waste bounded (stencil
-    matrices — speed-of-light streaming); HYB when a dominant band exists
+    matrices — one streaming pass); HYB when a dominant band exists
     with a small unstructured remainder; padded ELL (gather SpMV) last.
     """
     n = A.shape[0]

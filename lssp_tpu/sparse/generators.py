@@ -3,7 +3,7 @@
 ``laplacian_2d`` reproduces the reference's canonical workload generator
 bit-for-bit (/root/reference/example/exam.cxx:4-59: 5-point stencil, diag 4,
 off-diagonals -1, row-major grid ordering, nnz = 5N²-4N).  The others cover
-the BASELINE.json acceptance configs: 3-D 7-point Poisson, nonsymmetric
+the BASELINE.md acceptance configs: 3-D 7-point Poisson, nonsymmetric
 convection–diffusion, 2-D elasticity (block structure), anisotropic Poisson.
 """
 from __future__ import annotations

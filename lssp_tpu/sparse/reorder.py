@@ -1,14 +1,11 @@
-"""Bandwidth-reducing reordering (RCM) for the TPU execution path.
+"""Bandwidth-reducing reordering (RCM) for the streaming execution formats.
 
-TPU has no hardware gather: XLA's gather-based SpMV runs at a flat
-~16 Mrow/s regardless of size (measured on v5e), while diagonal-streaming
-DIA SpMV runs at ~600 GB/s.  For unstructured matrices the winning move is
-a reverse-Cuthill–McKee symmetric permutation to crush the bandwidth, then
-DIA storage even at considerable zero-fill — streaming ndiag·n values beats
-element gathers by orders of magnitude up to hundreds of diagonals.
-
-The facade applies this transparently: the system P·A·Pᵀ (P·x) = P·b is
-solved and x is permuted back.  ILU quality typically improves under RCM.
+A reverse-Cuthill–McKee symmetric permutation crushes the bandwidth of an
+unstructured matrix so it can stream as DIA/HYB instead of gathering as
+ELL.  Whether that wins on the GPU depends on the zero-fill; it is not
+measured, so the facade applies it only on request (``reorder="rcm"``):
+the system P·A·Pᵀ (P·x) = P·b is solved and x is permuted back.  ILU
+quality typically improves under RCM.
 """
 from __future__ import annotations
 

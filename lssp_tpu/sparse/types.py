@@ -3,7 +3,7 @@
 The reference's containers are malloc'd struct-of-arrays
 (/root/reference/include/type-defs.h:15-62).  Here each format is a frozen
 dataclass registered as a JAX pytree: the index/data arrays are leaves (live in
-HBM when jitted), the shape/blocksize metadata is static aux data, so matrices
+device memory when jitted), the shape/blocksize metadata is static aux data, so matrices
 can flow through ``jit``/``shard_map``/``scan`` like any other array bundle.
 
 Arrays may be numpy (host, during assembly/factorization) or ``jax.Array``
@@ -132,8 +132,8 @@ class BSR:
     """Uniform block CSR (reference lssp_mat_bcsr, type-defs.h:45-55).
 
     ``blocks``: (nnzb, bs, bs) row-major dense blocks — directly consumable by
-    batched einsum/GEMM on the MXU (the reference stores blocks column-major
-    for Fortran BLAS, doc/mv.tex:54; we deliberately diverge).
+    batched einsum/GEMM (the reference stores blocks column-major for
+    Fortran BLAS, doc/mv.tex:54; we deliberately diverge).
     ``shape`` is the *scalar* shape (nrows, ncols) = (nrowb*bs, ncolb*bs).
     """
 
@@ -184,7 +184,7 @@ class BSR:
 
 @dataclasses.dataclass(frozen=True)
 class ELL:
-    """Padded ELLPACK — the TPU gather-SpMV execution format.
+    """Padded ELLPACK — the gather-SpMV execution format.
 
     ``cols``: (nrows, k) int32 column indices, padded entries point at column
     0; ``data``: (nrows, k) with padded entries 0 — so a plain gather +
@@ -214,12 +214,12 @@ class ELL:
 
 @dataclasses.dataclass(frozen=True)
 class DIA:
-    """Diagonal storage — the TPU stencil-matrix execution format.
+    """Diagonal storage — the stencil-matrix execution format.
 
     ``offsets``: static tuple of diagonal offsets; ``data``: (ndiag, nrows)
     where ``data[d, i] = A[i, i + offsets[d]]`` (row-aligned convention, so
     SpMV is ``y[i] += data[d, i] * x[i + off]`` — a shifted elementwise
-    multiply, which XLA lowers to pure VPU + HBM streaming at speed of light).
+    multiply that XLA fuses into one streaming loop).
     Out-of-range entries are stored as 0.
     """
 
@@ -243,13 +243,13 @@ class DIA:
 
 @dataclasses.dataclass(frozen=True)
 class BDIA:
-    """Block-diagonal storage — the TPU execution format for block-banded
+    """Block-diagonal storage — the execution format for block-banded
     matrices (e.g. elasticity BSR after RCM).
 
     ``blocks[d, i] = A_block[i, i + offsets[d]]`` (row-aligned, like DIA but
     at block granularity): the SpMV is one batched (bs×bs)@(bs,) einsum per
-    block diagonal on shifted block columns — MXU work with zero gathers,
-    unlike the BSR path's block-row gather.  Out-of-range blocks are 0.
+    block diagonal on shifted block columns with zero gathers, unlike the
+    BSR path's block-row gather.  Out-of-range blocks are 0.
     """
 
     offsets: Tuple[int, ...]    # static; in BLOCK units
@@ -278,16 +278,15 @@ class BDIA:
 
 @dataclasses.dataclass(frozen=True)
 class HYB:
-    """Hybrid band + remainder — the TPU execution format for *nearly*
-    banded matrices (general SuiteSparse patterns after RCM).
+    """Hybrid band + remainder — the execution format for *nearly* banded
+    matrices (general SuiteSparse patterns after RCM).
 
-    The densely-occupied diagonals stream as a ``DIA`` part at roofline
-    bandwidth; the few off-band entries live in COO triplet arrays
+    The densely-occupied diagonals stream as a ``DIA`` part; the few
+    off-band entries live in row-sorted COO triplet arrays
     (``rem_rows``/``rem_cols``/``rem_vals``, padded with zero entries at
-    (0, 0) to a lane-friendly length).  The remainder applies as one
-    gather + scatter-add whose cost is proportional to the REMAINDER COUNT
-    — a padded-ELL remainder was measured 340× slower at 1M rows because
-    its gather touches all n·k slots regardless of how few are real.
+    (n-1, 0) to a multiple of 8).  The remainder applies as one gather +
+    scatter-add whose cost is proportional to the REMAINDER COUNT, where a
+    padded-ELL remainder would touch all n·k slots however few are real.
     SpMV = DIA product + ``y.at[rem_rows].add(rem_vals · x[rem_cols])``.
     Built by ``convert.csr_to_hyb`` which bounds both the diagonal padding
     waste and the remainder fraction.
@@ -298,31 +297,6 @@ class HYB:
     rem_cols: Any         # (nnz_rem_padded,) int32
     rem_vals: Any         # (nnz_rem_padded,)
     shape: Tuple[int, int]
-    # optional WINDOW layout of the same remainder (built by csr_to_hyb
-    # when the occupancy histogram permits): entries re-laid into S slots
-    # per 128-row window so the TPU kernel can scatter them as a dense
-    # one-hot VPU epilogue — zero dynamic indexing.  Entries past S in an
-    # overfull window spill to the ovr_* COO triplets (scalar scatter).
-    # All three win_* are (S, ceil(n/128)); None ⇒ scalar-remainder only.
-    win_cols: Any = None  # (S, nwin) int32 global column (0 in padding)
-    win_lane: Any = None  # (S, nwin) int32 row % 128 (0 in padding)
-    win_vals: Any = None  # (S, nwin) dtype (0 in padding)
-    ovr_rows: Any = None  # (novr_padded,) int32
-    ovr_cols: Any = None  # (novr_padded,) int32
-    ovr_vals: Any = None  # (novr_padded,)
-    # optional TILE-COMPACT layout of the same remainder (preferred on
-    # TPU): ALL entries re-laid into TS slots per KERNEL row-tile
-    # (``tile_rows`` rows — must equal ops/pallas_spmv.py: hyb_tile_rows),
-    # scattered in-kernel by one iota-compare one-hot MXU matmul per tile.
-    # vs the per-window layout: the XLA-side contribution gather touches
-    # the compact slot count (~1.5× entries) instead of S·nwin (~3×), and
-    # no entry ever spills to a scalar path.  All four tc_* are (nb, TS);
-    # None ⇒ layout unavailable (clustered tiles blew the TS cap).
-    tc_cols: Any = None   # (nb, TS) int32 global column (0 in padding)
-    tc_vals: Any = None   # (nb, TS) dtype (0 in padding)
-    tc_win: Any = None    # (nb, TS) int32 (row % tile_rows) // 128
-    tc_lane: Any = None   # (nb, TS) int32 row % 128
-    tile_rows: Any = None # static: kernel tile size the layout was built for
 
     @property
     def dtype(self):
@@ -345,7 +319,4 @@ _register(BSR, ("indptr", "indices", "blocks"), ("shape", "blocksize"))
 _register(ELL, ("cols", "data"), ("shape",))
 _register(DIA, ("data",), ("offsets", "shape"))
 _register(BDIA, ("blocks",), ("offsets", "shape", "blocksize"))
-_register(HYB, ("dia", "rem_rows", "rem_cols", "rem_vals", "win_cols",
-                "win_lane", "win_vals", "ovr_rows", "ovr_cols", "ovr_vals",
-                "tc_cols", "tc_vals", "tc_win", "tc_lane"),
-          ("shape", "tile_rows"))
+_register(HYB, ("dia", "rem_rows", "rem_cols", "rem_vals"), ("shape",))

@@ -1,6 +1,6 @@
 """Memory observability (reference lssp_mem_cur/peak via getrusage RSS,
 /root/reference/src/utils.cxx:68-91, API doc/utils.tex:48-52) plus device
-HBM live-byte accounting for the TPU side."""
+device live-byte accounting."""
 from __future__ import annotations
 
 import resource

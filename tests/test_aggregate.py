@@ -1,9 +1,9 @@
 """Hierarchical strength-aggregation ordering (amg/aggregate.py) — the
-TPU-fast AMG path for matrices with no detectable grid.
+gather-free AMG path for matrices with no detectable grid.
 
 Capability match: AMG on any CSR (/root/reference/src/pc-amg.cxx:21-134);
 the realization (aggregate-then-renumber so reshape aggregates are true
-strength aggregates) is TPU-first with no reference analog.
+strength aggregates) has no reference analog.
 """
 import numpy as np
 import pytest

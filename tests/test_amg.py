@@ -119,41 +119,6 @@ class TestAMGPreconditioner:
         assert counts[-1] <= counts[0] + 4
 
 
-def test_classical_amg_tpu_dispatch(monkeypatch):
-    """pc='amg' on the TPU backend builds the TPU-resident classical cycle
-    (amg/rs.py) when its gather-free layout holds the interpolation mass,
-    and falls back to saamg when it cannot (round-5 closure of the
-    classical-AMG-on-TPU partial)."""
-    import jax
-    import numpy as np
-    import scipy.sparse as sp
-    import lssp_tpu as lt
-    from lssp_tpu import pc as pc_mod
-    from lssp_tpu.amg.rs import RSAMG
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    A = lt.sparse.laplacian_2d(32)
-    M = pc_mod.setup(A, "amg")
-    assert M.name == "amg" and isinstance(M.state, RSAMG)
-    # a matrix whose interpolation offsets can't fit the layout routes to
-    # saamg (random long-range couplings, tiny offset cap)
-    rng = np.random.default_rng(4)
-    n = 256
-    i = rng.integers(0, n, 2000)
-    j = rng.integers(0, n, 2000)
-    m = i != j
-    W = sp.csr_matrix((-np.ones(m.sum()), (i[m], j[m])), shape=(n, n))
-    W = W + W.T
-    Abad = lt.sparse.CSR.from_scipy(
-        (W + sp.diags(-np.asarray(W.sum(axis=1)).ravel() + 1.0)).tocsr())
-    M2 = pc_mod.setup(Abad, "amg", lt.PCOptions(amg_max_pdiags=2))
-    assert "saamg" in M2.name
-    # amg_force_classical pins the classical cycle regardless
-    M3 = pc_mod.setup(Abad, "amg",
-                      lt.PCOptions(amg_max_pdiags=2,
-                                   amg_force_classical=True))
-    assert M3.name == "amg" and isinstance(M3.state, RSAMG)
-
-
 def test_fmg_initial_guess():
     """Full-multigrid start (the reference's FASP FMG solver type,
     solver-amg.cxx:99): the nested-iteration guess must not lose to the
@@ -183,3 +148,24 @@ def test_w_cycle(pc):
     resw = np.linalg.norm(np.asarray(b) - A.to_scipy() @ np.asarray(xw))
     assert bool(iw.converged) and resw < 1e-5
     assert int(iw.nits) <= int(iv.nits) + 1, (int(iw.nits), int(iv.nits))
+
+
+@pytest.mark.parametrize("pc,expect", [
+    ("amg", "DeviceAMG"), ("rsamg", "RSAMG"), ("saamg", "SAHierarchy")])
+def test_amg_pc_builds_expected_hierarchy(pc, expect):
+    """pc='amg' is the classical ELL hierarchy on every backend; rsamg and
+    saamg are asked for by name."""
+    from lssp_tpu import pc as pc_mod
+    M = pc_mod.setup(laplacian_2d(32), pc)
+    assert type(M.state).__name__ == expect
+    assert M.name.startswith(pc)
+
+
+def test_coarse_solve_pins_precision():
+    """The dense coarse solve of the V-cycle runs at HIGHEST precision (an
+    fp32 product may otherwise run in TF32 on the GPU)."""
+    h = build_device_amg(amg_setup(laplacian_2d(16)), dtype=np.float32)
+    jaxpr = str(jax.make_jaxpr(lambda r: vcycle(h, r))(
+        jnp.ones(256, jnp.float32)))
+    assert "dot_general" in jaxpr
+    assert "DEFAULT" not in jaxpr and "HIGHEST" in jaxpr

@@ -1,7 +1,7 @@
 """Block-ILUT and variable-block ILU tests (the reference's ITSOL adapter
 capabilities: BILUT pc-bilut.cxx:12-112, VBILUK pc-vbiluk.cxx:8-65, VBILUT
 pc-vbilut.cxx:7-76 — reimplemented natively; variable blocks are embedded
-into uniform bs_max blocks for static MXU shapes)."""
+into uniform bs_max blocks for static batched shapes)."""
 import itertools
 
 import jax.numpy as jnp
@@ -257,7 +257,7 @@ class TestPolyPC:
 
 def test_vbilu_honors_ilu_sweeps():
     """vbiluk/vbilut route through _pack_bilu_pc so PCOptions.ilu_sweeps and
-    the TPU Neumann default apply uniformly (round-1 advisor finding)."""
+    the Neumann-sweep option apply uniformly (round-1 advisor finding)."""
     import numpy as np
     import jax.numpy as jnp
     from lssp_tpu import sparse, solve, PCOptions

@@ -123,34 +123,6 @@ class TestTriSolve:
         np.testing.assert_allclose(f(sched, b), trisolve_lower_unit(sched, b))
 
 
-class TestPallasSpMV:
-    def test_dia_pallas_interpret_matches_scipy(self, rng):
-        """Pallas stencil kernel (interpreter mode on CPU) vs scipy oracle."""
-        from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas
-        from lssp_tpu.sparse import laplacian_2d, csr_to_dia
-        A = laplacian_2d(32)
-        D = csr_to_dia(A)
-        import dataclasses
-        D32 = dataclasses.replace(D, data=np.asarray(D.data, np.float32))
-        x = rng.standard_normal(1024).astype(np.float32)
-        y = dia_spmv_pallas(D32, jnp.asarray(x), interpret=True)
-        ref = (A.to_scipy() @ x.astype(np.float64)).astype(np.float32)
-        np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-5, atol=1e-5)
-
-    def test_dia_pallas_nondivisible_n(self, rng):
-        """n not a multiple of the tile: padding path."""
-        from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas
-        from lssp_tpu.sparse import laplacian_2d, csr_to_dia
-        import dataclasses
-        A = laplacian_2d(21)     # n = 441, not lane-aligned
-        D = csr_to_dia(A)
-        D32 = dataclasses.replace(D, data=np.asarray(D.data, np.float32))
-        x = rng.standard_normal(441).astype(np.float32)
-        y = dia_spmv_pallas(D32, jnp.asarray(x), interpret=True)
-        ref = (A.to_scipy() @ x.astype(np.float64)).astype(np.float32)
-        np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-4, atol=1e-4)
-
-
 class TestTriSweepCarryMiscompile:
     """Regression for an XLA:CPU miscompile (jax 0.9.0): the
     concurrency-optimized scheduler races two *independent* level-sweep
@@ -276,12 +248,12 @@ class TestBDIA:
         A = lssp_tpu.sparse.elasticity_2d(16)
         B = csr_to_bsr(A, 2)
         csr, dev, perm = _prepare_matrix(B)
-        assert isinstance(dev, DIA)      # measured fastest path on TPU
+        assert isinstance(dev, DIA)      # scalar DIA first for banded BSR
 
 
 class TestTridiagPCR:
     """Parallel cyclic reduction tridiagonal solver (ops/tridiag.py) — the
-    TPU-native line-smoother core."""
+    data-parallel line-smoother core."""
 
     def test_matches_scipy_banded(self, rng):
         import jax.numpy as jnp
@@ -322,47 +294,160 @@ class TestTridiagPCR:
                                        rtol=1e-12, atol=1e-13)
 
 
-def test_dia_pallas_vmap_rule_matches_scipy(rng):
-    """The custom vmap rule of the Pallas DIA kernel (the solve_multi
-    batched path) must match per-column scipy products — exercised
-    directly since backend gating keeps it off the solver tests' path."""
-    import jax
-    import jax.numpy as jnp
-    from lssp_tpu.sparse import laplacian_2d, csr_to_dia
-    from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas
-    A = laplacian_2d(20)
-    D = csr_to_dia(A)
-    X = jnp.asarray(rng.standard_normal((3, 400)))
-    Y = np.asarray(jax.vmap(
-        lambda v: dia_spmv_pallas(D, v, interpret=True, scale=0.5))(X))
-    S = A.to_scipy()
-    for k in range(3):
-        np.testing.assert_allclose(Y[k], 0.5 * (S @ np.asarray(X[k])),
-                                   rtol=1e-12)
-    # data-batched with shared x (degenerate direction of the rule)
-    Dstack = jnp.stack([jnp.asarray(D.data), 2.0 * jnp.asarray(D.data)])
-    import dataclasses as dc
-    Y2 = np.asarray(jax.vmap(
-        lambda dd: dia_spmv_pallas(dc.replace(D, data=dd), X[0],
-                                   interpret=True))(Dstack))
-    np.testing.assert_allclose(Y2[1], 2.0 * Y2[0], rtol=1e-12)
+# ---- the plain-XLA DIA / HYB / block products (the GPU execution path) ----
+
+def _dia_from_offsets(n, offsets, dtype, seed):
+    """Random DIA-structured CSR with exactly ``offsets`` diagonals."""
+    rng = np.random.default_rng(seed)
+    S = sp.diags([rng.standard_normal(n - abs(o)) for o in offsets],
+                 list(offsets), shape=(n, n), format="csr")
+    return CSR.from_scipy(S.astype(dtype))
 
 
-def test_dia_pallas_ext_vmap_rule(rng):
-    """The prepadded (distributed per-shard) kernel's custom vmap rule —
-    the dist_solve_multi TPU path."""
-    import jax
-    import jax.numpy as jnp
-    from lssp_tpu.sparse import laplacian_2d, csr_to_dia
-    from lssp_tpu.ops.pallas_spmv import dia_spmv_pallas_ext
-    A = laplacian_2d(20)
-    D = csr_to_dia(A)
-    lo = 20; hi = 20
-    X = jnp.asarray(rng.standard_normal((3, 400)))
-    Xe = jnp.pad(X, ((0, 0), (lo, hi)))
-    Y = np.asarray(jax.vmap(
-        lambda v: dia_spmv_pallas_ext(jnp.asarray(D.data), v, D.offsets,
-                                      interpret=True))(Xe))
-    S = A.to_scipy()
-    for k in range(3):
-        np.testing.assert_allclose(Y[k], S @ np.asarray(X[k]), rtol=1e-12)
+DIA_OFFSETS = {
+    "stencil5": (-19, -1, 0, 1, 19),
+    "asym": (-3, 0, 2, 7),
+    "diag": (0,),
+    "far": (-36, 0, 36),
+}
+DTYPE_TOL = {np.float32: 2e-6, np.float64: 1e-13}
+
+
+class TestDiaSpmvXLA:
+    """The static-slice DIA product (ops/spmv.py: dia_spmv_padded) against
+    scipy, over offset sets, unaligned n, and both precisions."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                             ids=["f32", "f64"])
+    @pytest.mark.parametrize("n", [37, 1001])
+    @pytest.mark.parametrize("offs", sorted(DIA_OFFSETS))
+    def test_forward(self, offs, n, dtype):
+        A = _dia_from_offsets(n, DIA_OFFSETS[offs], dtype, seed=n)
+        D = csr_to_dia(A)
+        assert D.offsets == DIA_OFFSETS[offs]
+        x = np.random.default_rng(1).standard_normal(n).astype(dtype)
+        y = jax.jit(spmv)(D, jnp.asarray(x))
+        assert y.dtype == dtype
+        ref = A.to_scipy().astype(np.float64) @ x.astype(np.float64)
+        np.testing.assert_allclose(np.asarray(y, np.float64), ref,
+                                   rtol=DTYPE_TOL[dtype],
+                                   atol=DTYPE_TOL[dtype] * np.abs(ref).max())
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                             ids=["f32", "f64"])
+    @pytest.mark.parametrize("offs", sorted(DIA_OFFSETS))
+    def test_transpose(self, offs, dtype):
+        from lssp_tpu.ops.spmv import spmv_t
+        n = 203
+        A = _dia_from_offsets(n, DIA_OFFSETS[offs], dtype, seed=7)
+        x = np.random.default_rng(2).standard_normal(n).astype(dtype)
+        y = jax.jit(spmv_t)(csr_to_dia(A), jnp.asarray(x))
+        ref = A.to_scipy().astype(np.float64).T @ x.astype(np.float64)
+        np.testing.assert_allclose(np.asarray(y, np.float64), ref,
+                                   rtol=DTYPE_TOL[dtype],
+                                   atol=DTYPE_TOL[dtype] * np.abs(ref).max())
+
+    @pytest.mark.parametrize("alpha", [0.5, np.float32(-2.0), "traced"])
+    def test_mv_amxy_scaling(self, alpha):
+        A = laplacian_2d(13)
+        D = csr_to_dia(A)
+        x = np.random.default_rng(4).standard_normal(169)
+        if alpha == "traced":
+            y = jax.jit(lambda a, v: mv_amxy(a, D, v))(1.5, jnp.asarray(x))
+            a = 1.5
+        else:
+            y = mv_amxy(alpha, D, jnp.asarray(x))
+            a = float(alpha)
+        np.testing.assert_allclose(np.asarray(y), a * (A.to_scipy() @ x),
+                                   rtol=1e-12, atol=1e-12)
+
+    @pytest.mark.parametrize("fmt", ["dia", "hyb", "ell"])
+    def test_vmap_over_rhs(self, fmt):
+        from lssp_tpu.sparse.convert import csr_to_hyb
+        A = laplacian_2d(20)
+        if fmt == "hyb":
+            S = A.to_scipy().tolil()
+            S[0, 300] = 0.5                 # one off-band entry
+            A = CSR.from_scipy(S.tocsr())
+        M = {"dia": csr_to_dia, "hyb": csr_to_hyb, "ell": csr_to_ell}[fmt](A)
+        X = np.random.default_rng(6).standard_normal((3, 400))
+        Y = np.asarray(jax.vmap(lambda v: spmv(M, v))(jnp.asarray(X)))
+        for k in range(3):
+            np.testing.assert_allclose(Y[k], A.to_scipy() @ X[k],
+                                       rtol=1e-12, atol=1e-12)
+
+    def test_dia_is_static_slices(self):
+        """No dynamic_slice or gather in the DIA program: every shifted
+        window of x is a static slice XLA can fuse."""
+        D = csr_to_dia(laplacian_2d(16))
+        jaxpr = str(jax.make_jaxpr(spmv)(D, jnp.ones(256)))
+        assert "dynamic_slice" not in jaxpr and "gather" not in jaxpr
+
+
+class TestHybPlainGather:
+    """HYB remainder applied as x[rem_cols] + sorted scatter-add."""
+
+    def _hyb(self, seed=3):
+        from lssp_tpu.sparse.convert import csr_to_hyb
+        S = laplacian_2d(24).to_scipy().tolil()
+        rng = np.random.default_rng(seed)
+        for i, j in zip(rng.integers(0, 576, 30), rng.integers(0, 576, 30)):
+            S[i, j] += 0.1
+        A = CSR.from_scipy(S.tocsr())
+        H = csr_to_hyb(A)
+        assert 0 < H.nnz_rem and np.all(np.diff(H.rem_rows) >= 0)
+        return A, H
+
+    @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
+    def test_matches_scipy(self, transpose):
+        from lssp_tpu.ops.spmv import spmv_t
+        A, H = self._hyb()
+        x = np.random.default_rng(8).standard_normal(576)
+        op = spmv_t if transpose else spmv
+        y = jax.jit(op)(jax.device_put(H), jnp.asarray(x))
+        S = A.to_scipy()
+        np.testing.assert_allclose(np.asarray(y),
+                                   (S.T if transpose else S) @ x,
+                                   rtol=1e-12, atol=1e-12)
+
+
+class TestBlockProductsPinnedPrecision:
+    """BSR/BDIA einsums pin precision=HIGHEST (an fp32 contraction may run
+    in TF32 on the GPU otherwise) and match numpy."""
+
+    def _elasticity(self, dtype):
+        from lssp_tpu.sparse import elasticity_2d
+        A = elasticity_2d(6)
+        return CSR.from_scipy(A.to_scipy().astype(dtype).tocsr())
+
+    @pytest.mark.parametrize("fmt", ["bsr", "bdia"])
+    @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
+    def test_matches_numpy(self, fmt, transpose):
+        from lssp_tpu.ops.spmv import spmv_t
+        from lssp_tpu.sparse.convert import bsr_to_bdia
+        A = self._elasticity(np.float32)
+        M = csr_to_bsr(A, 2)
+        if fmt == "bdia":
+            M = bsr_to_bdia(M)
+        x = np.random.default_rng(9).standard_normal(A.shape[0])
+        x = x.astype(np.float32)
+        op = spmv_t if transpose else spmv
+        fn = (lambda v: op(M, v)) if fmt == "bsr" else jax.jit(
+            lambda v: op(M, v))
+        y = np.asarray(fn(jnp.asarray(x)), np.float64)
+        Dn = A.todense().astype(np.float64)
+        ref = (Dn.T if transpose else Dn) @ x.astype(np.float64)
+        np.testing.assert_allclose(y, ref, rtol=2e-6,
+                                   atol=2e-6 * np.abs(ref).max())
+        jaxpr = str(jax.make_jaxpr(fn)(jnp.asarray(x)))
+        assert "dot_general" in jaxpr
+        assert "DEFAULT" not in jaxpr and "HIGHEST" in jaxpr
+
+    def test_block_trisolve_pins_precision(self):
+        from lssp_tpu import pc as pc_mod, PCOptions
+        A = self._elasticity(np.float32)
+        M = pc_mod.setup(A, "biluk", PCOptions(block_size=2))
+        jaxpr = str(jax.make_jaxpr(M)(jnp.ones(A.shape[0],
+                                                     jnp.float32)))
+        assert "dot_general" in jaxpr
+        assert "DEFAULT" not in jaxpr and "HIGHEST" in jaxpr

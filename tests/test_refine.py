@@ -1,5 +1,5 @@
 """Mixed-precision iterative refinement: fp64-quality answers from fp32
-inner solves (the TPU-native precision strategy)."""
+inner solves (the precision strategy)."""
 import jax.numpy as jnp
 import numpy as np
 
@@ -42,7 +42,7 @@ class TestIR:
 
 def test_bf16_inner_refinement_reaches_fp64_target():
     """Mixed-precision IR with a bfloat16 inner solver: half the HBM bytes
-    per inner iteration (bandwidth-bound => ~1.6x net on TPU) while the
+    per inner iteration (bandwidth-bound; GPU speed not measured) while the
     fp64 outer loop still lands the 1e-8 relative target.  Inner tolerance
     must be loose (~3e-2): bf16 has 8 mantissa bits."""
     import numpy as np

@@ -1,4 +1,4 @@
-"""TPU-resident classical AMG (amg/rs.py): AggP exactness, hierarchy
+"""Gather-free classical AMG (amg/rs.py): AggP exactness, hierarchy
 quality, cycle parity with the gather-based classical realization, and
 preconditioned iteration counts.
 
@@ -157,7 +157,7 @@ class TestCycleParity:
 class TestPreconditioner:
     def test_cg_poisson3d_beats_saamg(self):
         """The r4 routing table's worst saamg case (3-D Poisson, 1.78× the
-        classical iterations) is exactly where the TPU-resident classical
+        classical iterations) is exactly where the gather-free classical
         cycle must win."""
         A = lt.sparse.laplacian_3d(24)
         b = jnp.ones(A.shape[0], dtype=jnp.float64)

@@ -1,4 +1,4 @@
-"""Structured smoothed-aggregation AMG tests (the gather-free TPU multigrid,
+"""Structured smoothed-aggregation AMG tests (the gather-free multigrid,
 lssp_tpu/amg/sa.py; LIS saamg capability, solver-lis.cxx:8-41)."""
 import jax.numpy as jnp
 import numpy as np

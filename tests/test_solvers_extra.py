@@ -182,7 +182,7 @@ class TestTranspose:
 
 
 class TestHostTraceFallback:
-    """Backends without host callbacks (remote PJRT tunnels) cannot run
+    """Backends without host callbacks (some PJRT plugins) cannot run
     jax.debug.print; verbosity>=1 must fall back to a host-printed trace
     instead of crashing."""
 

@@ -253,124 +253,6 @@ class TestHYB:
         res = np.linalg.norm(np.asarray(b) - A.to_scipy() @ np.asarray(x))
         assert res < 1e-5
 
-    def test_window_layout_reconstructs(self, rng):
-        """win_* slots + ovr_* overflow together hold exactly the
-        remainder (the fused-kernel layout, ops/pallas_spmv.py)."""
-        from lssp_tpu.sparse.convert import csr_to_hyb
-        import scipy.sparse as sp
-        A = self._nearly_banded(n_extra=120, seed=7)
-        H = csr_to_hyb(A)
-        assert H.win_vals is not None
-        S, nwin = H.win_vals.shape
-        n = A.shape[0]
-        assert nwin == -(-n // 128)
-        rows_w = (np.arange(nwin)[None, :] * 128
-                  + np.asarray(H.win_lane)).ravel()
-        R = sp.coo_matrix(
-            (np.asarray(H.win_vals).ravel(),
-             (rows_w, np.asarray(H.win_cols).ravel())), shape=A.shape)
-        R = R + sp.coo_matrix(
-            (np.asarray(H.ovr_vals),
-             (np.asarray(H.ovr_rows), np.asarray(H.ovr_cols))),
-            shape=A.shape)
-        Rem = sp.coo_matrix(
-            (np.asarray(H.rem_vals),
-             (np.asarray(H.rem_rows), np.asarray(H.rem_cols))),
-            shape=A.shape)
-        assert abs(R.tocsr() - Rem.tocsr()).max() < 1e-14
-
-    def test_fused_window_kernel_interpret(self, rng):
-        """The Pallas window-epilogue kernel (interpret mode) matches the
-        scalar remainder path bit-for-bit semantics-wise, including the
-        overflow triplets and vmapped batched calls."""
-        from lssp_tpu.sparse.convert import csr_to_hyb
-        from lssp_tpu.ops.pallas_spmv import dia_spmv_hyb_pallas
-        from lssp_tpu.ops.spmv import lane_gather
-        A = self._nearly_banded(n_extra=200, seed=11)
-        n = A.shape[0]
-        H = csr_to_hyb(CSR.from_scipy(
-            A.to_scipy().astype(np.float32).tocsr()))
-        assert H.win_vals is not None
-        S, nwin = H.win_vals.shape
-        x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-
-        def apply(v):
-            xg = lane_gather(v, jnp.asarray(H.win_cols).reshape(-1))
-            y = dia_spmv_hyb_pallas(jax.device_put(H), v,
-                                    jnp.asarray(H.win_vals)
-                                    * xg.reshape(S, nwin), interpret=True)
-            return y.at[jnp.asarray(H.ovr_rows)].add(
-                jnp.asarray(H.ovr_vals)
-                * lane_gather(v, jnp.asarray(H.ovr_cols)))
-
-        ref = A.to_scipy().astype(np.float32) @ np.asarray(x)
-        np.testing.assert_allclose(np.asarray(apply(x)), ref,
-                                   rtol=2e-5, atol=2e-5)
-        Xb = jnp.asarray(rng.standard_normal((3, n)).astype(np.float32))
-        got_b = jax.vmap(apply)(Xb)
-        for i in range(3):
-            np.testing.assert_allclose(
-                np.asarray(got_b[i]),
-                A.to_scipy().astype(np.float32) @ np.asarray(Xb[i]),
-                rtol=2e-5, atol=2e-5)
-
-    def test_tile_compact_layout_reconstructs(self):
-        """tc_* slot arrays hold EXACTLY the remainder (no spill path)."""
-        import scipy.sparse as sp
-        from lssp_tpu.sparse.convert import csr_to_hyb
-        A = self._nearly_banded(n_side=40, n_extra=300, seed=7)
-        H = csr_to_hyb(CSR.from_scipy(
-            A.to_scipy().astype(np.float32).tocsr()))
-        assert H.tc_vals is not None and H.tile_rows > 0
-        nb, TS = H.tc_vals.shape
-        tiles = np.repeat(np.arange(nb), TS)
-        rows = (tiles * H.tile_rows + np.asarray(H.tc_win).ravel() * 128
-                + np.asarray(H.tc_lane).ravel())
-        R = sp.coo_matrix((np.asarray(H.tc_vals).ravel(),
-                           (rows, np.asarray(H.tc_cols).ravel())),
-                          shape=A.shape)
-        Rem = sp.coo_matrix(
-            (np.asarray(H.rem_vals),
-             (np.asarray(H.rem_rows), np.asarray(H.rem_cols))),
-            shape=A.shape)
-        assert abs(R.tocsr() - Rem.tocsr()).max() < 1e-14
-
-    def test_fused_tile_compact_kernel_interpret(self, rng):
-        """The MXU scatter-epilogue kernel (interpret mode) matches scipy,
-        including multi-tile grids and vmapped batched calls."""
-        from lssp_tpu.sparse.convert import csr_to_hyb
-        from lssp_tpu.ops.pallas_spmv import (dia_spmv_hyb_tc_pallas,
-                                              hyb_tile_rows)
-        from lssp_tpu.ops.spmv import lane_gather
-        # n=129600 > one 64k tile -> exercises the multi-tile grid
-        A = self._nearly_banded(n_side=360, n_extra=500, seed=13)
-        n = A.shape[0]
-        H = csr_to_hyb(CSR.from_scipy(
-            A.to_scipy().astype(np.float32).tocsr()))
-        assert H.tc_vals is not None
-        nb, TS = H.tc_vals.shape
-        assert nb >= 2, "want a multi-tile case"
-        assert H.tile_rows == hyb_tile_rows(n, H.dia.offsets, 4)
-        Hd = jax.device_put(H)
-        x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-
-        def apply(v):
-            xg = lane_gather(v, jnp.asarray(H.tc_cols).reshape(-1))
-            return dia_spmv_hyb_tc_pallas(
-                Hd, v, jnp.asarray(H.tc_vals) * xg.reshape(nb, TS),
-                interpret=True)
-
-        ref = A.to_scipy().astype(np.float32) @ np.asarray(x)
-        np.testing.assert_allclose(np.asarray(apply(x)), ref,
-                                   rtol=2e-5, atol=2e-5)
-        Xb = jnp.asarray(rng.standard_normal((2, n)).astype(np.float32))
-        got_b = jax.vmap(apply)(Xb)
-        for i in range(2):
-            np.testing.assert_allclose(
-                np.asarray(got_b[i]),
-                A.to_scipy().astype(np.float32) @ np.asarray(Xb[i]),
-                rtol=2e-5, atol=2e-5)
-
 
 class TestGridTranspose:
     """Grid-transpose normalization for strong-y anisotropy (the
